@@ -1,9 +1,9 @@
 """Leaky-surface input layer.
 
-Counterpart of ``async_ev_cnn_tpu/layers/integration.py``: a static spec
-plus the initial state.  The per-chunk step of the sequential engine comes
-with the incremental modes; the parallel-in-time path integrates with
-:func:`async_ev_cnn_torch.ops.integrate.integrate_parallel`.
+Counterpart of ``async_ev_cnn_tpu/layers/integration.py``: a static spec,
+the initial state and the per-chunk step of the sequential engine.  The
+parallel-in-time path integrates with
+:func:`async_ev_cnn_torch.ops.integrate.integrate_parallel` instead.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from typing import NamedTuple
 
 import torch
 
-from async_ev_cnn_torch.layers.types import IntegrationState, LayerIO
+from async_ev_cnn_torch.layers.types import EventChunk, IntegrationState, LayerIO
+from async_ev_cnn_torch.ops.integrate import integrate_step
 
 
 class IntegrationSpec(NamedTuple):
@@ -40,3 +41,21 @@ def integration_init(spec: IntegrationSpec, device) -> tuple[IntegrationState, L
         prev_ts=torch.zeros((), dtype=torch.int32, device=device))
     return state, _make_io(
         surface, torch.zeros((spec.h, spec.w), dtype=torch.bool, device=device))
+
+
+def integration_step(spec: IntegrationSpec, state: IntegrationState, chunk: EventChunk
+                     ) -> tuple[IntegrationState, LayerIO, torch.Tensor]:
+    """Integrate one chunk ``[E]``; returns ``(state, io, delta_leak)``,
+    ``delta_leak`` the f32 0-dim leak the conv layers propagate."""
+    if spec.channels == 1:
+        surface, last_ts, out_mask, delta_leak = integrate_step(
+            state.surface[0], state.prev_ts,
+            chunk.y, chunk.x, chunk.ts, chunk.valid, spec.leak,
+        )
+        surface = surface[None]
+    else:
+        surface, last_ts, out_mask, delta_leak = integrate_step(
+            state.surface, state.prev_ts,
+            chunk.y, chunk.x, chunk.ts, chunk.valid, spec.leak, p=chunk.p,
+        )
+    return IntegrationState(surface, last_ts), _make_io(surface, out_mask), delta_leak

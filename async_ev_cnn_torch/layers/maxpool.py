@@ -1,8 +1,15 @@
-"""Max-pool layer.
+"""Incremental max-pool layer.
 
-Counterpart of ``async_ev_cnn_tpu/layers/maxpool.py``; this slice runs the
-'full' (dense recompute) mode.  The incremental 'event' mode raises
-``NotImplementedError`` until its slice.
+Counterpart of ``async_ev_cnn_tpu/layers/maxpool.py`` (its docstring has the
+reference semantics).  State is the within-window argmax index per
+``(channel, oy, ox)`` plus the ``recompute`` set, windows whose winner may
+be overtaken as leak accumulates.  Per step: clear the event windows from
+the recompute set, take the union as the active set, re-run the composite
+argmax there, flag unstable windows again, and emit every active window.
+The reference's quirk is kept: a recompute window that becomes stable is
+not cleared; only an event landing on it clears the flag.  Outputs are
+gathers at the stored indices over non-overlapping windows (``stride ==
+ksize``).  'full' mode is the dense pool of a 'full' predecessor.
 """
 
 from __future__ import annotations
@@ -12,8 +19,8 @@ from typing import NamedTuple
 import torch
 
 from async_ev_cnn_torch.layers.types import LayerIO, PoolState
-from async_ev_cnn_torch.ops.masks import pool_out_shape
-from async_ev_cnn_torch.ops.pool import maxpool_dense
+from async_ev_cnn_torch.ops.masks import dilate_mask, pool_out_shape, window_view
+from async_ev_cnn_torch.ops.pool import composite_argmax, maxpool_dense
 
 
 class PoolSpec(NamedTuple):
@@ -30,13 +37,6 @@ class PoolSpec(NamedTuple):
         return (c, oh, ow)
 
 
-def _require_full(spec: PoolSpec) -> None:
-    if spec.mode != "full":
-        raise NotImplementedError(
-            f"pool mode {spec.mode!r} waits for the port's incremental-mode "
-            "slice; this slice runs mode 'full'")
-
-
 def _full_pool_io(spec: PoolSpec, prev_io: LayerIO) -> LayerIO:
     """Dense max over the *activated* map.  The leaky activation is
     monotone, so this equals the activated value at the window argmax."""
@@ -44,16 +44,69 @@ def _full_pool_io(spec: PoolSpec, prev_io: LayerIO) -> LayerIO:
     return LayerIO(surface=fm, layer_actfn=None, conv_actfn=None, mask=None)
 
 
+def _gather(spec: PoolSpec, array, idx):
+    """Pooled view of ``array`` at the stored indices: [C,H,W] -> [C,oh,ow].
+
+    A one-hot select and sum over the window axis, as the JAX package
+    computes it (exact: one ``x`` and zeros)."""
+    win = window_view(array, spec.ksize, spec.stride)  # [C, oh, ow, kk]
+    kk = win.shape[-1]
+    onehot = idx[..., None] == torch.arange(kk, dtype=idx.dtype, device=idx.device)
+    zero = torch.zeros((), dtype=win.dtype, device=win.device)
+    return torch.where(onehot, win, zero).sum(dim=-1)
+
+
+def _make_io(spec: PoolSpec, prev_io: LayerIO, idx, mask) -> LayerIO:
+    return LayerIO(
+        surface=_gather(spec, prev_io.surface, idx),
+        layer_actfn=_gather(spec, prev_io.layer_actfn, idx),
+        conv_actfn=_gather(spec, prev_io.conv_actfn, idx),
+        mask=mask,
+    )
+
+
 def pool_init(spec: PoolSpec, prev_init_io: LayerIO) -> tuple[PoolState, LayerIO]:
-    """Initial state: 0-dim placeholders in 'full' mode."""
-    _require_full(spec)
+    """Initial indices: the plain argmax of the initial surface.  'full'
+    mode keeps 0-dim placeholders."""
     dev = prev_init_io.surface.device
-    state = PoolState(idx_max=torch.zeros((), dtype=torch.int32, device=dev),
-                      recompute=torch.zeros((), dtype=torch.bool, device=dev))
-    return state, _full_pool_io(spec, prev_init_io)
+    if spec.mode == "full":
+        state = PoolState(idx_max=torch.zeros((), dtype=torch.int32, device=dev),
+                          recompute=torch.zeros((), dtype=torch.bool, device=dev))
+        return state, _full_pool_io(spec, prev_init_io)
+    surf_w = window_view(prev_init_io.surface, spec.ksize, spec.stride)
+    idx = torch.argmax(surf_w, dim=-1).to(torch.int32)
+    _, oh, ow = spec.out_shape
+    none = torch.zeros((oh, ow), dtype=torch.bool, device=dev)
+    state = PoolState(idx_max=idx, recompute=none)
+    return state, _make_io(spec, prev_init_io, idx, none.clone())
+
+
+def pool_step_full_recompute(spec: PoolSpec, state: PoolState, prev_io: LayerIO,
+                             delta_leak) -> tuple[PoolState, LayerIO]:
+    """Oracle variant: recompute the dense argmax of every window each step
+    and emit events where the winning index changed."""
+    surf_w = window_view(prev_io.surface, spec.ksize, spec.stride)
+    idx = torch.argmax(surf_w, dim=-1).to(torch.int32)
+    ev_windows = dilate_mask(prev_io.mask, spec.ksize, spec.stride)
+    changed = (idx != state.idx_max).any(dim=0)
+    new_state = PoolState(idx_max=idx, recompute=state.recompute)
+    return new_state, _make_io(spec, prev_io, idx, ev_windows | changed)
 
 
 def pool_step(spec: PoolSpec, state: PoolState, prev_io: LayerIO, delta_leak
               ) -> tuple[PoolState, LayerIO]:
-    _require_full(spec)
-    return state, _full_pool_io(spec, prev_io)
+    if spec.mode == "full":
+        return state, _full_pool_io(spec, prev_io)
+    ev_windows = dilate_mask(prev_io.mask, spec.ksize, spec.stride)
+    recompute = state.recompute & ~ev_windows  # only events clear the flag
+    active = ev_windows | recompute
+
+    surf_w = window_view(prev_io.surface, spec.ksize, spec.stride)
+    cact_w = window_view(prev_io.conv_actfn, spec.ksize, spec.stride)
+    idx_new, not_argmin_c = composite_argmax(surf_w, cact_w)  # per channel
+    not_argmin = not_argmin_c.any(dim=0)
+
+    idx = torch.where(active[None], idx_new, state.idx_max)
+    recompute = recompute | (active & not_argmin)
+    new_state = PoolState(idx_max=idx, recompute=recompute)
+    return new_state, _make_io(spec, prev_io, idx, active)

@@ -8,22 +8,28 @@ port's: ``w_<name>`` conv kernels in OIHW (the checkpoint's HWIO kernels
 are transposed once by :func:`async_ev_cnn_torch.utils.weights.
 params_from_jax`), ``b_<name>`` biases, fc weights as in the checkpoint.
 
-This slice runs the parallel-in-time path (:meth:`EventNetwork.
-scan_parallel`, every conv/pool layer in 'full' mode); the sequential
-``forward``/``step``/``scan`` engine comes with the incremental modes.
+Two engines run the same streaming semantics: the sequential one
+(:meth:`EventNetwork.forward`/``step``/``scan``, every conv mode, each layer
+carrying its state from chunk to chunk and recomputing only the sites that
+events reach), and the parallel-in-time one (:meth:`EventNetwork.
+scan_parallel`, every conv/pool layer in 'full' mode).
 """
 
 from __future__ import annotations
 
 import copy
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from math import prod
 from typing import Any, NamedTuple
 
 import torch
 
 from async_ev_cnn_torch.layers.conv2d import ConvSpec, conv_init, conv_step
-from async_ev_cnn_torch.layers.integration import IntegrationSpec, integration_init
+from async_ev_cnn_torch.layers.integration import (
+    IntegrationSpec,
+    integration_init,
+    integration_step,
+)
 from async_ev_cnn_torch.layers.maxpool import PoolSpec, pool_init, pool_step
 from async_ev_cnn_torch.layers.types import EventChunk, IntegrationState, LayerIO
 from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky
@@ -154,7 +160,14 @@ def _validate_stem_fusion(stem_fusion):
 
 class EventNetwork:
     """The async event network: static specs + init/forward over explicit
-    state (a tuple of per-layer ``NamedTuple``s of tensors)."""
+    state (a tuple of per-layer ``NamedTuple``s of tensors).
+
+    ``conv_mode`` takes the JAX package's names, so configurations read the
+    same: 'dense', 'sparse', 'sparse_pallas', 'sparse_rows', 'window',
+    'full' and 'auto' (= 'full').  'sparse_pallas' runs the hand-written
+    CUDA rulebook kernels (K3 at stride 1, K4 otherwise) on the card, and
+    their plain versions on the CPU (:mod:`async_ev_cnn_torch.layers.conv2d`).
+    """
 
     def __init__(
         self,
@@ -178,6 +191,15 @@ class EventNetwork:
         self.alpha = alpha
         self.out_shape = self.event_layers[-1].spec.out_shape
         self._stem_fusion = stem_fusion
+        #: per conv layer of the sequential engine: host reads of device
+        #: flags (``host_syncs``), ``dense_fallbacks`` and
+        #: ``kernel_launches`` since the last :meth:`reset_counts`
+        self.layer_counts: dict[str, Counter] = {
+            ld.name: Counter() for ld in self.event_layers if ld.kind == "conv"}
+
+    def reset_counts(self) -> None:
+        for c in self.layer_counts.values():
+            c.clear()
 
     def with_stem_fusion(self, stem_fusion: bool | str) -> "EventNetwork":
         """A shallow clone with a different ``stem_fusion`` policy."""
@@ -252,6 +274,50 @@ class EventNetwork:
                 x = leaky(x @ params[f"w_{ld.name}"] + params[f"b_{ld.name}"],
                           self.alpha)
         return x.float()
+
+    def forward(self, params, state: tuple, chunk: EventChunk, upto: int | None = None
+                ) -> tuple[tuple, "OrderedDict[str, LayerIO]"]:
+        """One chunk ``[E]`` through every event layer; returns the new
+        state and every layer's output.  ``upto`` truncates the chain after
+        that many layers: the index is INCLUSIVE over ``event_layers``
+        (``upto=0`` runs the integration layer only), unlike
+        :meth:`full_frame_forward`'s exclusive one, as in the JAX package."""
+        states = []
+        ios: "OrderedDict[str, LayerIO]" = OrderedDict()
+        delta_leak = None
+        prev_io = None
+        for i, (ld, st) in enumerate(zip(self.event_layers, state)):
+            if upto is not None and i > upto:
+                states.append(st)
+                continue
+            if ld.kind == "intgr":
+                st, prev_io, delta_leak = integration_step(ld.spec, st, chunk)
+            elif ld.kind == "conv":
+                st, prev_io = conv_step(
+                    ld.spec, params[f"w_{ld.name}"], params[f"b_{ld.name}"], st,
+                    prev_io, delta_leak, counts=self.layer_counts[ld.name])
+            else:  # pool
+                st, prev_io = pool_step(ld.spec, st, prev_io, delta_leak)
+            states.append(st)
+            ios[ld.name] = prev_io
+        return tuple(states), ios
+
+    def step(self, params, state: tuple, chunk: EventChunk):
+        """One chunk -> ``(new_state, output)``: the last event layer's
+        featuremap as ``[H, W, C]`` with the dense tail applied."""
+        state, ios = self.forward(params, state, chunk)
+        last = next(reversed(ios.values()))
+        return state, self.apply_tail(params, last.featuremap.permute(1, 2, 0))
+
+    def scan(self, params, state: tuple, chunks: EventChunk):
+        """Stacked chunks ``[T, E]`` through :meth:`step` one after another;
+        returns ``(state, outputs [T, ...])``.  A Python loop (the JAX
+        package's ``lax.scan``)."""
+        outs = []
+        for i in range(chunks.y.shape[0]):
+            state, out = self.step(params, state, EventChunk(*(f[i] for f in chunks)))
+            outs.append(out)
+        return state, torch.stack(outs)
 
     def full_frame_forward(self, params, state: tuple, frame: torch.Tensor,
                            upto: int | None = None):

@@ -88,11 +88,14 @@ def conv2d_dense(
     x: torch.Tensor,
     kernel: torch.Tensor,
     bias: torch.Tensor | None,
-    stride: int = 1,
+    stride: int | tuple[int, int] = 1,
     padding: str = "VALID",
 ) -> torch.Tensor:
     """Dense conv of ``x`` ``[C, H, W]`` or ``[N, C, H, W]`` with ``kernel``
-    ``[O, I, kh, kw]`` (OIHW) and the TF pads of ``padding``."""
+    ``[O, I, kh, kw]`` (OIHW) and the TF pads of ``padding``.  A
+    ``(row, column)`` stride pair is taken with VALID padding only."""
+    if not isinstance(stride, int) and padding != "VALID":
+        raise ValueError("a (row, column) stride pair needs VALID padding")
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
@@ -105,17 +108,24 @@ def conv2d_dense(
     if pt == pb and pl == pr:
         # symmetric pads (every stride-1 odd kernel): let the conv pad
         # instead of materialising a padded copy of the input
-        out = F.conv2d(x, kernel.float(), bias, stride=stride, padding=(pt, pl))
+        out = F.conv2d(x, kernel.float(), None, stride=stride, padding=(pt, pl))
     else:
-        out = F.conv2d(F.pad(x, (pl, pr, pt, pb)), kernel.float(), bias,
+        out = F.conv2d(F.pad(x, (pl, pr, pt, pb)), kernel.float(), None,
                        stride=stride)
+    if bias is not None:
+        # added after the sum, as the JAX package does: a bias folded into
+        # the conv may round differently, and the incremental layers must
+        # agree bit for bit between the sites they update and the ones they
+        # keep from an earlier step
+        out.add_(bias.float().reshape(1, -1, 1, 1))
     return out[0] if squeeze else out
 
 
 def leaky_mask(surface: torch.Tensor, alpha: float) -> torch.Tensor:
-    """Leaky-ReLU as a multiplicative mask."""
-    one = torch.ones((), dtype=torch.float32, device=surface.device)
-    return torch.where(surface > 0, one, one.new_tensor(alpha))
+    """Leaky-ReLU as a multiplicative float32 mask: 1 or ``alpha`` rounded
+    to float32 (Python scalars: no tensor is made on the card, which would
+    be a host-to-device copy that waits for the card)."""
+    return torch.where(surface > 0, 1.0, float(alpha)).to(torch.float32)
 
 
 def leaky(x: torch.Tensor, alpha: float) -> torch.Tensor:

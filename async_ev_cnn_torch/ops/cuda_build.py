@@ -35,6 +35,8 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: one lock per source, so two sources build at once from two threads
+_BUILD_LOCKS: dict[str, threading.Lock] = {}
 #: seconds each library took to build in this process (absent: found built)
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -60,8 +62,12 @@ def library_path(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Safe to call from several threads: each source builds once, and two
+    sources build in parallel."""
     with _LOCK:
+        build_lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with build_lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -91,3 +97,61 @@ def build_log(name: str) -> str:
     """nvcc's output (with ``-Xptxas=-v``) from building ``csrc/<name>.cu``."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def load_all(names) -> None:
+    """Build and load several sources at once: one ``nvcc`` per source, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for future in [pool.submit(load, n) for n in names]:
+            future.result()
+
+
+# ---- the wrappers' launch discipline ---------------------------------------
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU (the wrapper then runs its
+    plain version), False when all lie on the card; raises on a mix."""
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return True
+    if devices == {"cuda"}:
+        return False
+    raise ValueError(f"tensors must all lie on the CPU or all on the card, "
+                     f"got {sorted(devices)}")
+
+
+def check(name, tensor, dtype, device, ndim) -> None:
+    """Raise unless ``tensor`` is what a kernel takes: its device, dtype,
+    rank, and contiguous."""
+    if tensor.device != device:
+        raise ValueError(f"{name} is on {tensor.device}, expected {device}")
+    if tensor.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {tensor.dtype}")
+    if tensor.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(tensor.shape)}")
+    if not tensor.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(tensor.data_ptr())
+
+
+def launch(lib_name: str, fn_name: str, device, *args) -> None:
+    """Call the C entry ``fn_name`` of ``csrc/<lib_name>.cu`` on ``device``'s
+    current stream (appended as the last argument); raise if the launch
+    failed.  Every argument is already a ``ctypes`` value."""
+    import torch
+
+    fn = getattr(load(lib_name), fn_name)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")

@@ -24,6 +24,11 @@ def _i32(value, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.int32, device=device)
 
 
+# Constants enter the arithmetic as Python scalars or 0-dim CPU tensors
+# (float32_scalar(..., "cpu")), never as tensors made on the card: making one
+# is a pageable host-to-device copy, which waits for the card's stream.
+
+
 def _event_ts_map(y, x, ts, valid, h: int, w: int) -> torch.Tensor:
     """Per-pixel max timestamp of the chunk's events; sentinel elsewhere.
 
@@ -34,11 +39,11 @@ def _event_ts_map(y, x, ts, valid, h: int, w: int) -> torch.Tensor:
     needs no host-side compaction."""
     pix = y.long() * w + x.long()
     ok = valid & (pix >= 0) & (pix < h * w)
-    sentinel = _i32(TS_SENTINEL_VALUE, ts.device)
     ts_map = torch.full((h * w,), TS_SENTINEL_VALUE, dtype=torch.int32,
                         device=ts.device)
     ts_map.scatter_reduce_(0, torch.where(ok, pix, 0),
-                           torch.where(ok, ts.to(torch.int32), sentinel), "amax")
+                           torch.where(ok, ts.to(torch.int32), TS_SENTINEL_VALUE),
+                           "amax")
     return ts_map.reshape(h, w)
 
 
@@ -64,13 +69,12 @@ def integrate_step(surface, prev_ts, y, x, ts, valid, leak: float, p=None):
             "a [C, H, W] channeled surface requires the polarity array p")
     dev = surface.device
     h, w = surface.shape[-2:]
-    leak_f = float32_scalar(leak, dev)
+    leak_f = float32_scalar(leak, "cpu")
     prev_ts = _i32(prev_ts, dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    sentinel = _i32(TS_SENTINEL_VALUE, dev)
     # an all-padding chunk is a no-op step: last_ts falls back to prev_ts
     last_ts = torch.maximum(prev_ts, torch.where(valid, ts.to(torch.int32),
-                                                 sentinel).max())
+                                                 TS_SENTINEL_VALUE).max())
     delta_leak = snap((last_ts - prev_ts).float() * leak_f)
 
     before_pos = surface > 0
@@ -106,10 +110,10 @@ def _ts_chain(prev_ts, chunks, leak):
     dev = chunks.ts.device
     prev_ts = _i32(prev_ts, dev)
     chunk_max = torch.where(chunks.valid, chunks.ts.to(torch.int32),
-                            _i32(TS_SENTINEL_VALUE, dev)).amax(dim=1)
+                            TS_SENTINEL_VALUE).amax(dim=1)
     last_ts = torch.cummax(torch.maximum(chunk_max, prev_ts), dim=0).values
     prev_last = torch.cat([prev_ts.reshape(1), last_ts[:-1]])
-    d = snap((last_ts - prev_last).float() * float32_scalar(leak, dev))
+    d = snap((last_ts - prev_last).float() * float32_scalar(leak, "cpu"))
     return last_ts, d
 
 
@@ -139,11 +143,9 @@ def chunk_event_updates(channels, h, w, prev_ts, chunks, leak):
         p = chunks.p.to(torch.int32)
         ch = p.clamp(0, channels - 1)
         valid = chunks.valid & (p >= 0) & (p < channels)
-    minus_one = _i32(-1, dev)
-    pix = torch.where(valid, ch * (h * w) + yi * w + xi, minus_one)  # [T, E]
+    pix = torch.where(valid, ch * (h * w) + yi * w + xi, -1)  # [T, E]
 
-    ts_b = torch.where(valid, chunks.ts.to(torch.int32),
-                       _i32(TS_SENTINEL_VALUE, dev))
+    ts_b = torch.where(valid, chunks.ts.to(torch.int32), TS_SENTINEL_VALUE)
     idx = torch.arange(pix.shape[1], device=dev)
     same = (pix[:, :, None] == pix[:, None, :]) & valid[:, None, :]
     later = (ts_b[:, None, :] > ts_b[:, :, None]) | (
@@ -152,8 +154,8 @@ def chunk_event_updates(channels, h, w, prev_ts, chunks, leak):
     )
     keep = valid & ~(same & later).any(dim=2)  # [T, E]
 
-    pix = torch.where(keep, pix, minus_one)
-    dt = torch.where(keep, last_ts[:, None] - ts_b, _i32(0, dev))
+    pix = torch.where(keep, pix, -1)
+    dt = torch.where(keep, last_ts[:, None] - ts_b, 0)
     return pix, dt, d, last_ts
 
 
@@ -183,8 +185,7 @@ def chunk_ts_maps(channels, h, w, prev_ts, chunks, leak):
                         device=dev)
     ts_map.scatter_reduce_(
         0, torch.where(ok, flat, 0).reshape(-1),
-        torch.where(ok, chunks.ts.to(torch.int32),
-                    _i32(TS_SENTINEL_VALUE, dev)).reshape(-1),
+        torch.where(ok, chunks.ts.to(torch.int32), TS_SENTINEL_VALUE).reshape(-1),
         "amax")
     return ts_map.reshape(t, channels, h, w), d, last_ts
 

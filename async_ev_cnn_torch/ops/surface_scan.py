@@ -26,6 +26,10 @@ import ctypes
 import numpy as np
 import torch
 
+from async_ev_cnn_torch.ops import cuda_build
+from async_ev_cnn_torch.ops.cuda_build import check as _check
+from async_ev_cnn_torch.ops.cuda_build import on_cpu as _on_cpu
+from async_ev_cnn_torch.ops.cuda_build import ptr as _ptr
 from async_ev_cnn_torch.ops.numerics import float32_scalar, snap
 
 #: kernel launches per wrapper since the counts were last reset
@@ -85,42 +89,9 @@ def surface_scan_tsmap_plain(surface, ts_map, d, last_ts, leak: float) -> torch.
     return out
 
 
-def _check(name, tensor, dtype, device, ndim):
-    if tensor.device != device:
-        raise ValueError(f"{name} is on {tensor.device}, expected {device}")
-    if tensor.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {tensor.dtype}")
-    if tensor.dim() != ndim:
-        raise ValueError(f"{name} must have {ndim} dims, got {tuple(tensor.shape)}")
-    if not tensor.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _ptr(tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(tensor.data_ptr())
-
-
 def _launch(fn_name: str, device, *args) -> None:
-    from async_ev_cnn_torch.ops import cuda_build
-
-    fn = getattr(cuda_build.load("surface_scan"), fn_name)
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
+    cuda_build.launch("surface_scan", fn_name, device, *args)
     LAUNCHES[fn_name] += 1
-
-
-def _on_cpu(*tensors) -> bool:
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return True
-    if devices == {"cuda"}:
-        return False
-    raise ValueError(f"tensors must all lie on the CPU or all on the card, "
-                     f"got {sorted(devices)}")
 
 
 def surface_scan_events(surface, pix, dt, d, leak: float) -> torch.Tensor:

@@ -25,8 +25,42 @@ Phases, one line each on standard output:
 6. profile: one more dispatch under torch.profiler, with the device-busy
    share of its wall time and the kernels that take the most device time.
 
+Then the incremental (sequential) engine, the eFCN in conv_mode
+'sparse_pallas' on a clustered stream (events around a drifting centre,
+radius 8, ts gaps 1..14 us, the JAX benchmark's clustered_stream):
+
+7. rulebook kernels: K3 (rulebook_gather_gemm_blocks) at every conv layer's
+   shapes, its 1x8 blocks taken from that layer's real active mask at its
+   block capacity, and K4 (rulebook_gather_gemm) at stride 2 on conv2's
+   shapes, each against its plain version within 1e-5 * (1 + max |plain|)
+   (float32 sums of up to 9 * 512 terms in another order); with median
+   times, the plain versions' times, the memory/FFMA bound and the time of
+   the layer's dense [2, C, H, W] conv pair (the crossover reference);
+8. path: YoloEventTorch.scan over 64 chunks of 256 events (the sequential
+   engine, not all layers 'full'), the counts set to 0 just before and
+   read just after: events/s, ms/chunk, and per conv layer the K3
+   launches, dense fallbacks and host reads; K3 must launch at conv1 on
+   every chunk, and the grids must lie within 1e-4 of the same run in
+   conv_mode 'dense';
+9. gate: run_equivalence at full width in 'sparse_pallas' and in 'dense'
+   (30 steps of 200 uniform events, max_dt 30): every layer within 1e-4 of
+   the dense oracle;
+10. K4's path: one conv_step of a hand-built stride-2 'sparse_pallas'
+    ConvSpec at conv2's shapes (K4 counted once), its state within 1e-5
+    and its mask equal to the same spec in 'dense' mode;
+11. card against CPU: 8 chunks of the incremental path on the card and on
+    the CPU (the kernels' plain versions): grids within 1e-4;
+12. profile: the synchronizing CUDA calls of one sequential chunk (sync
+    debug mode) against the layers' counted flag reads, then one chunk
+    under torch.profiler.
+
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
-result line.  Any failure raises and exits non-zero without a result line;
+result line.  K1's and K2's ``ms`` are CUDA-event times over many calls;
+K3's and K4's ``ms`` are their kernels' device time per call from
+torch.profiler (``call_ms`` beside it is the event-timed wall time of a
+wrapper call, which the host's launch overhead sets at these sizes), and
+``dense_pair_ms`` the device time of the dense conv pair.  K3's times and
+bound are the sums over its seven layer calls of one chunk.  Any failure raises and exits non-zero without a result line;
 without a CUDA device, or without the package beside it, it exits non-zero.
 """
 
@@ -52,6 +86,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 DISPATCHES = 16
 OUT_TOL = 1e-4
+SEQ_CHUNKS = 64
+WARM_CHUNKS = 8
+CAPACITY_FRAC = 0.25
+KERNEL_REL_TOL = 1e-5
 
 
 def require(cond, what: str) -> None:
@@ -66,6 +104,20 @@ def synth_stream(rng, steps, events_per_step, h=H, w=W, rate_us=15):
     ts = np.cumsum(rng.randint(1, rate_us, size=n)).astype(np.int32)
     y = rng.randint(0, h, size=n).astype(np.int32)
     x = rng.randint(0, w, size=n).astype(np.int32)
+    return np.stack([y, x, ts], axis=-1)
+
+
+def clustered_stream(rng, steps, events_per_step, radius=8, rate_us=15, h=H, w=W):
+    """Events around a drifting centre, ts gaps in [1, rate_us) µs (the JAX
+    benchmark's clustered_stream: the spatial statistics of real DVS
+    streams)."""
+    n = steps * events_per_step
+    ts = np.cumsum(rng.randint(1, rate_us, size=n)).astype(np.int32)
+    t = np.arange(n) / events_per_step
+    cy = h / 2 + h / 3 * np.sin(t * 0.05)
+    cx = w / 2 + w / 3 * np.cos(t * 0.04)
+    y = np.clip(np.round(cy + rng.randn(n) * radius), 0, h - 1).astype(np.int32)
+    x = np.clip(np.round(cx + rng.randn(n) * radius), 0, w - 1).astype(np.int32)
     return np.stack([y, x, ts], axis=-1)
 
 
@@ -105,6 +157,28 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return float(np.median(times))
+
+
+def device_ms(fn, kernel_key=None, iters: int = 20) -> float:
+    """Device time per call of ``fn`` under torch.profiler: the kernels
+    whose name holds ``kernel_key`` (every kernel when None), summed over
+    ``iters`` calls.  Unlike :func:`time_ms` it leaves out the host's time
+    between launches, which sets a small kernel's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and (kernel_key is None or kernel_key in e.key)]
+    if kernel_key is not None:
+        n = sum(e.count for e in hits)
+        require(n == iters, f"profiled {n} launches of {kernel_key}, expected {iters}")
+    return sum(e.self_device_time_total for e in hits) / iters / 1e3
 
 
 def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
@@ -186,6 +260,292 @@ def check_kernels_small(dev) -> None:
             and sc.LAUNCHES == before, "zero-chunk calls launched or counted")
 
 
+
+def hwc_padded(spec, plane):
+    """A layer's input plane, zero-padded by its conv pads, as HWC."""
+    import torch.nn.functional as F
+
+    (pt, pb), (pl, pr) = spec.pads
+    return F.pad(plane.float(), (pl, pr, pt, pb)).permute(1, 2, 0).contiguous()
+
+
+def box_pixels(rows, cols, hp, wp, kh, box_w, stride=1) -> int:
+    """Distinct padded-plane pixels that the boxes at (rows * stride, cols)
+    of kh x box_w cover: what a gather must read at least once."""
+    seen = np.zeros((hp, wp), bool)
+    for y, x in zip(rows, cols):
+        seen[y * stride:y * stride + kh, x:x + box_w] = True
+    return int(seen.sum())
+
+
+def rulebook_case(name, spec, kernel, bias, prev_io, dev):
+    """One rulebook kernel call at a layer's shapes, from its real active
+    mask: the kernel against its plain version, the times and the bound."""
+    from async_ev_cnn_torch.ops import conv as tconv
+    from async_ev_cnn_torch.ops import masks as tmasks
+    from async_ev_cnn_torch.ops import rulebook_gemm as rg
+
+    active = tmasks.dilate_mask(prev_io.mask, spec.ksize, spec.stride, spec.pads)
+    fm, ca = hwc_padded(spec, prev_io.featuremap), hwc_padded(spec, prev_io.conv_actfn)
+    w_hwio = kernel.permute(2, 3, 1, 0).contiguous().float()
+    bias = bias.float().contiguous()
+    hp, wp, c = fm.shape
+    kh, kw = spec.ksize
+    o = kernel.shape[0]
+    if spec.stride == 1:
+        # where the mask overflows the capacity (the path then falls back
+        # to 'dense'), the kernel still runs here on the first blocks
+        by, bx, valid, n_active = tmasks.mask_to_block_coords(
+            active, spec.block_capacity, rg.BLOCK_W)
+        args = (fm, ca, w_hwio, bias, by, bx)
+        kernel_fn, plain_fn, kwargs = (rg.rulebook_gather_gemm_blocks,
+                                       rg.rulebook_gather_gemm_blocks_plain, {})
+        sites_per_box, box_w = rg.BLOCK_W, rg.BLOCK_W + kw - 1
+        cols_scale = rg.BLOCK_W
+    else:
+        ys, xs, valid = tmasks.mask_to_topk_coords(active, spec.capacity)
+        n_active = active.sum()
+        args = (fm, ca, w_hwio, bias, ys, xs)
+        kernel_fn, plain_fn = rg.rulebook_gather_gemm, rg.rulebook_gather_gemm_plain
+        kwargs = {"stride": spec.stride}
+        sites_per_box, box_w, cols_scale = 1, kw, spec.stride
+    got = kernel_fn(*args, **kwargs)
+    want = plain_fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+    tol = KERNEL_REL_TOL * (1 + max(float(w_.abs().max()) for w_ in want))
+    require(err <= tol, f"{name}: {kernel_fn.__name__} differs from its plain version "
+            f"by {err} > {tol}")
+    # the work this mask needs: the valid boxes' distinct input pixels of
+    # both planes, the weights and bias, the coordinates, and the valid
+    # boxes' outputs of both planes; 2 flops (one FFMA) per term
+    keep = valid.cpu().numpy()
+    rows = args[4].cpu().numpy()[keep]
+    cols = args[5].cpu().numpy()[keep] * cols_scale
+    n_valid = int(keep.sum())
+    pixels = box_pixels(rows, cols, hp, wp, kh, box_w, spec.stride)
+    n_bytes = 4 * (2 * pixels * c + kh * kw * c * o + o + 2 * args[4].numel()
+                   + 2 * n_valid * sites_per_box * o)
+    n_ops = 2 * 2 * n_valid * sites_per_box * kh * kw * c * o
+    pair = torch.stack([prev_io.featuremap, prev_io.conv_actfn]).float()
+    return {
+        "layer": name, "k": int(args[4].numel()), "valid": n_valid,
+        "active": int(n_active), "c": c, "o": o,
+        "err": err,
+        "ms": device_ms(lambda: kernel_fn(*args, **kwargs), "rulebook_kernel"),
+        "call_ms": time_ms(lambda: kernel_fn(*args, **kwargs), 50),
+        "plain_ms": time_ms(lambda: plain_fn(*args, **kwargs), 5),
+        "dense_pair_ms": device_ms(lambda: tconv.conv2d_dense(
+            pair, kernel, None, spec.stride, spec.padding)),
+        "bound": bound_ms(n_bytes, n_ops),
+    }
+
+
+def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
+    """Phases 7-12: the incremental engine at full width.  Returns the K3
+    and K4 entries of the kernels' JSON line."""
+    from async_ev_cnn_torch.layers import conv2d as tconv2d
+    from async_ev_cnn_torch.layers.types import EventChunk
+    from async_ev_cnn_torch.models.yolo import YoloEventTorch
+    from async_ev_cnn_torch.ops import rulebook_gemm as rg
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.utils.equivalence import make_stream, run_equivalence
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    def model(mode, where=dev):
+        m = YoloEventTorch(
+            args.frame_h, args.frame_w, num_classes, layer_defs, args.yolo_cnn_padding,
+            args.yolo_num_cells_h, args.yolo_num_cells_w, num_bbox, alpha=0.1,
+            leak=args.leak, conv_mode=mode, capacity_frac=CAPACITY_FRAC, device=where)
+        m.set_weights(make_params(layer_defs, np.random.RandomState(0)))
+        return m
+
+    def part(chunks, a, b):
+        return EventChunk(*(f[a:b] for f in chunks))
+
+    sp, dn = model("sparse_pallas"), model("dense")
+    net, params = sp.net, sp.params
+    require(not net.is_all_full, "the incremental model is all 'full'")
+    stream = clustered_stream(np.random.RandomState(3), WARM_CHUNKS + SEQ_CHUNKS, CAPACITY)
+    chunks = pack_chunks(stream, CAPACITY, device=dev)
+    warm, run = part(chunks, 0, WARM_CHUNKS), part(chunks, WARM_CHUNKS, None)
+
+    # ---- 7. rulebook kernels at every conv layer's shapes -------------------
+    state = sp.init_state()
+    for i in range(WARM_CHUNKS):
+        state, ios = net.forward(params, state, EventChunk(*(f[i] for f in warm)))
+    layers = net.event_layers
+    k3 = [rulebook_case(ld.name, ld.spec, params[f"w_{ld.name}"], params[f"b_{ld.name}"],
+                        ios[layers[j - 1].name], dev)
+          for j, ld in enumerate(layers) if ld.kind == "conv"]
+    conv2 = next(ld for ld in layers if ld.name == "conv2")
+    k4_spec = conv2.spec._replace(stride=2, mode="sparse_pallas")
+    pool1_io = ios["pool1"]
+    k4 = rulebook_case("conv2/stride2", k4_spec, params["w_conv2"], params["b_conv2"],
+                       pool1_io, dev)
+    print("rulebook-kernels: K3 == plain and K4 == plain within "
+          f"{KERNEL_REL_TOL} * (1 + max|plain|) at chunk {WARM_CHUNKS} of the clustered "
+          "stream; " + "; ".join(
+              f"{r['layer']} K={r['k']} ({r['valid']} valid of {r['active']} active) "
+              f"C={r['c']} O={r['o']}: "
+              f"device {r['ms']:.4f} ms (a call {r['call_ms']:.4f}, plain "
+              f"{r['plain_ms']:.3f}, dense pair device {r['dense_pair_ms']:.4f}, bound "
+              f"{r['bound'][0]:.5f} {r['bound'][1]}), "
+              f"err {r['err']:.2e}" for r in k3 + [k4]), flush=True)
+
+    # ---- 8. the incremental path ----------------------------------------------
+    sp.scan(sp.init_state(), part(warm, 0, 4))  # warm-up: allocator, cuDNN set-up
+    dn.scan(dn.init_state(), part(warm, 0, 4))
+    st_sp, st_dn = sp.init_state(), dn.init_state()
+    # the main path: the counts are set to 0 just before it, read just after
+    rg.reset_launches()
+    sc.reset_launches()
+    net.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_sp, grids_sp = sp.scan(st_sp, run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    seq_launches = dict(rg.LAUNCHES)
+    per_layer = {k: dict(v) for k, v in net.layer_counts.items()}
+    require(dict(sc.LAUNCHES) == {"surface_scan_events": 0, "surface_scan_tsmap": 0},
+            f"the sequential path launched a surface scan: {sc.LAUNCHES}")
+    require(per_layer["conv1"].get("kernel_launches", 0) == SEQ_CHUNKS,
+            f"K3 launched {per_layer['conv1'].get('kernel_launches', 0)} times at conv1 "
+            f"over {SEQ_CHUNKS} chunks")
+    require(seq_launches["rulebook_gather_gemm_blocks"]
+            == sum(v.get("kernel_launches", 0) for v in per_layer.values())
+            and seq_launches["rulebook_gather_gemm"] == 0,
+            f"launch counts {seq_launches} disagree with the layers' {per_layer}")
+    t0 = time.perf_counter()
+    st_dn, grids_dn = dn.scan(st_dn, run)
+    torch.cuda.synchronize()
+    wall_dn = time.perf_counter() - t0
+    require(tuple(grids_sp.shape) == (SEQ_CHUNKS, *sp.grid_shape)
+            and bool(torch.isfinite(grids_sp).all()), "sequential grids' shape or values")
+    seq_err = float((grids_sp - grids_dn).abs().max())
+    require(seq_err <= OUT_TOL, f"'sparse_pallas' grids differ from 'dense' by {seq_err}")
+    n_events = int(run.valid.sum())
+    print(f"sequential-path: YoloEventTorch.scan (conv_mode='sparse_pallas', capacity "
+          f"{CAPACITY_FRAC}) over {SEQ_CHUNKS} clustered chunks of {CAPACITY} events: "
+          f"{n_events / wall:.0f} events/s, {wall * 1e3 / SEQ_CHUNKS:.3f} ms/chunk "
+          f"(conv_mode='dense': {n_events / wall_dn:.0f} events/s, "
+          f"{wall_dn * 1e3 / SEQ_CHUNKS:.3f} ms/chunk); grids within {seq_err:.2e} of "
+          f"'dense'; launches {seq_launches}; per layer (K3 launches, dense fallbacks, "
+          "host reads): " + ", ".join(
+              f"{k} ({v.get('kernel_launches', 0)}, {v.get('dense_fallbacks', 0)}, "
+              f"{v.get('host_syncs', 0)})" for k, v in per_layer.items())
+          + f"; card {smi!r}", flush=True)
+
+    # ---- 9. the async == dense gate at full width ------------------------------
+    gate = {}
+    for m in (sp, dn):
+        gchunks = make_stream(np.random.RandomState(0), 30, 200, H, W, max_dt=30, device=dev)
+        rep = run_equivalence(m.net, m.params, gchunks, device=dev)
+        worst = max(rep.max_diff.values())
+        require(worst <= OUT_TOL, f"{m.net.event_layers[1].spec.mode}: async != dense: "
+                f"{dict(rep.max_diff)}")
+        gate[m.net.event_layers[1].spec.mode] = worst
+    print("gate: run_equivalence at 160x224 (30 steps x 200 uniform events, max_dt 30): "
+          "every layer within 1e-4 of the dense oracle; max |async - dense| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gate.items()), flush=True)
+
+    # ---- 10. K4's path: one stride-2 conv_step ---------------------------------
+    dense_spec = k4_spec._replace(mode="dense")
+    w2, b2 = params["w_conv2"], params["b_conv2"]
+    st0, _ = tconv2d.conv_init(k4_spec, w2, b2, pool1_io)
+    leak = torch.tensor(3e-4, dtype=torch.float32, device=dev)
+    rg.reset_launches()
+    st_k, io_k = tconv2d.conv_step(k4_spec, w2, b2, st0, pool1_io, leak)
+    torch.cuda.synchronize()
+    k4_launches = dict(rg.LAUNCHES)
+    st_d, io_d = tconv2d.conv_step(dense_spec, w2, b2, st0, pool1_io, leak)
+    require(k4_launches == {"rulebook_gather_gemm_blocks": 0, "rulebook_gather_gemm": 1},
+            f"K4's path launches {k4_launches}")
+    k4_err = max(float((a - b).abs().max()) for a, b in zip(st_k, st_d))
+    require(k4_err <= KERNEL_REL_TOL and torch.equal(io_k.mask, io_d.mask),
+            f"stride-2 'sparse_pallas' conv_step differs from 'dense' by {k4_err}")
+    print(f"k4-path: conv_step of a stride-2 'sparse_pallas' ConvSpec at conv2's shapes "
+          f"{k4_spec.in_shape} -> {k4_spec.out_shape}: state within {k4_err:.2e} of "
+          f"'dense', masks equal; launches {k4_launches}", flush=True)
+
+    # ---- 11. card against CPU ------------------------------------------------------
+    cpu = model("sparse_pallas", torch.device("cpu"))
+    few = part(run, 0, 8)
+    _, g_card = sp.scan(sp.init_state(), few)
+    _, g_cpu = cpu.scan(cpu.init_state(), EventChunk(*(f.cpu() for f in few)))
+    cpu_err = float((g_card.cpu() - g_cpu).abs().max())
+    require(cpu_err <= OUT_TOL, f"card and CPU sequential grids differ by {cpu_err}")
+    print(f"seq-card-vs-cpu: 8 chunks of the 'sparse_pallas' path on the card and on the "
+          f"CPU (plain versions): grids max abs diff {cpu_err:.3e} (tolerance {OUT_TOL})",
+          flush=True)
+
+    # ---- 12. where one sequential chunk's time goes ---------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    one = EventChunk(*(f[0] for f in part(run, 0, 1)))
+    # every synchronizing CUDA call of one chunk, by the sync debug mode,
+    # against the flag reads the layers count
+    import warnings
+
+    net.reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sp.step(st_sp, one)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    n_reads = sum(v.get("host_syncs", 0) for v in net.layer_counts.values())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sp.step(st_sp, one)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    parts = [(e.key, e.count, e.self_device_time_total) for e in events
+             if e.device_type == DeviceType.CPU]
+    parts += [(e.key, e.count, e.self_device_time_total) for e in kernels
+              if "rulebook_kernel" in e.key]
+    top = sorted(parts, key=lambda e: -e[2])[:10]
+    print(f"seq-syncs: one sequential chunk makes {n_syncs} synchronizing CUDA calls "
+          f"(torch.cuda sync debug mode); the conv layers count {n_reads} flag reads",
+          flush=True)
+    print(f"seq-profile: one sequential chunk under torch.profiler: wall {wall_ms:.2f} ms, "
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall); device "
+          "time by op: " + "; ".join(f"{k[:60]} x{n} {us / 1e3:.3f} ms" for k, n, us in top),
+          flush=True)
+
+    def total(key):
+        return sum(r[key] for r in k3)
+
+    k3_bytes_ms = sum(r["bound"][0] for r in k3 if r["bound"][1] == "bytes")
+    k3_ops_ms = sum(r["bound"][0] for r in k3 if r["bound"][1] == "operations")
+    src = "async_ev_cnn_torch/csrc/rulebook.cu"
+    return [
+        {"name": "rulebook_gather_gemm_blocks", "route": "cuda", "source": src,
+         "replaces": "async_ev_cnn_tpu/ops/pallas_rulebook_blocks.py:94",
+         "launches": seq_launches["rulebook_gather_gemm_blocks"],
+         "max_abs_err": max(r["err"] for r in k3), "ms": total("ms"),
+         "plain_ms": total("plain_ms"), "bound_ms": k3_bytes_ms + k3_ops_ms,
+         "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
+         # no single PyTorch call gathers and multiplies at the active sites
+         "library_ms": None, "dense_pair_ms": total("dense_pair_ms"),
+         "call_ms": total("call_ms")},
+        {"name": "rulebook_gather_gemm", "route": "cuda", "source": src,
+         "replaces": "async_ev_cnn_tpu/ops/pallas_rulebook.py:97",
+         "launches": k4_launches["rulebook_gather_gemm"], "max_abs_err": k4["err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound"][0],
+         "bound_by": k4["bound"][1], "library_ms": None,
+         "dense_pair_ms": k4["dense_pair_ms"], "call_ms": k4["call_ms"]},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -224,13 +584,18 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.load("surface_scan")
-    built = cuda_build.BUILD_SECONDS.get("surface_scan")
-    ptxas = " | ".join(line.strip() for line in cuda_build.build_log("surface_scan").splitlines()
-                       if "Used" in line or "spill" in line)
-    print(f"build: surface_scan.cu loaded in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {'%.2f s' % built if built is not None else 'skipped: already built'}); "
-          f"ptxas: {ptxas}", flush=True)
+    sources = ("surface_scan", "rulebook")
+    cuda_build.load_all(sources)  # one nvcc per source, started together
+    parts = []
+    for src in sources:
+        built = cuda_build.BUILD_SECONDS.get(src)
+        ptxas = " | ".join(line.strip() for line in cuda_build.build_log(src).splitlines()
+                           if "Used" in line or "spill" in line)
+        parts.append(f"{src}.cu (nvcc "
+                     f"{'%.2f s' % built if built is not None else 'skipped: already built'}"
+                     f"; ptxas: {ptxas})")
+    print(f"build: loaded in {time.perf_counter() - t0:.2f} s: " + "; ".join(parts),
+          flush=True)
 
     # ---- 3. kernels against their plain versions ----------------------------
     rng = np.random.RandomState(0)
@@ -406,6 +771,8 @@ def main() -> int:
           "time by op: " + "; ".join(f"{k[:60]} x{n} {us / 1e3:.3f} ms" for k, n, us in top),
           flush=True)
 
+    rulebook_kernels = incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi)
+
     sources = {"surface_scan_events": "async_ev_cnn_tpu/ops/pallas_scan.py:273",
                "surface_scan_tsmap": "async_ev_cnn_tpu/ops/pallas_scan.py:105"}
     # each kernel's launches come from the run of its own path
@@ -420,7 +787,7 @@ def main() -> int:
             # no single PyTorch call computes the T-step clamped recurrence
             "library_ms": None,
         })
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + rulebook_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

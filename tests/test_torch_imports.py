@@ -59,6 +59,8 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     from async_ev_cnn_torch.layers.network import EventNetwork
     from async_ev_cnn_torch.models.yolo import YoloEventTorch
     from async_ev_cnn_torch.utils.config import layers_dict
+    from async_ev_cnn_torch.scripts import test_correctness
+    from async_ev_cnn_torch.utils.equivalence import make_stream, run_equivalence
     from async_ev_cnn_torch.utils.runner import pack_chunks
     from async_ev_cnn_torch.utils.serving import StreamingPipeline
 
@@ -69,12 +71,20 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     kw = dict(h_frame=8, w_frame=8, num_classes=1, cnn_layers=ld, cnn_padding="SAME",
               h_cells=4, w_cells=4, num_bbox=1, alpha=0.1, leak=1e-3, conv_mode="full")
     events = np.zeros((3, 3), np.int32)
+    chunks = make_stream(np.random.RandomState(0), 3, 2, 8, 8, device="cpu")
     for call in (lambda: net.init_state(params),
                  lambda: StreamingPipeline(net, params),
                  lambda: YoloEventTorch(**kw),
-                 lambda: pack_chunks(events, 4)):
+                 lambda: pack_chunks(events, 4),
+                 lambda: make_stream(np.random.RandomState(0), 3, 2, 8, 8),
+                 lambda: run_equivalence(net, params, chunks),
+                 lambda: test_correctness.main(["--iterations", "3"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert net.init_state(params, "cpu")[0].surface.device.type == "cpu"
     assert StreamingPipeline(net, params, device="cpu").device.type == "cpu"
     assert YoloEventTorch(**kw, device="cpu").device.type == "cpu"
+    assert chunks.y.device.type == "cpu"
+    assert max(run_equivalence(net, params, chunks, device="cpu").max_diff.values()) == 0.0
+    assert test_correctness.main(["--iterations", "20", "--device", "cpu",
+                                  "--mode", "sparse_pallas"]) == 0

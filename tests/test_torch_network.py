@@ -163,14 +163,16 @@ def test_build_layer_defs_match_jax():
 
 
 def test_slice_limits_raise_not_implemented(rng):
-    """What the slice does not carry raises NotImplementedError, never a
-    quiet fallback: incremental modes, bf16 activations, stem fusion."""
+    """What the port does not carry yet raises NotImplementedError, never a
+    quiet fallback: bf16 activations, stem fusion.  The incremental modes
+    are carried now (tests/test_torch_incremental.py); an incremental net
+    still has no parallel-in-time path."""
     ld = layers_dict(DSL)
     tp = params_from_jax(_params(ld, rng), "cpu")
     dense = tnet.EventNetwork(ld, H, W, 1e-3, padding="SAME", conv_mode="dense")
     assert not dense.is_all_full
-    with pytest.raises(NotImplementedError, match="incremental"):
-        dense.init_state(tp, "cpu")
+    st = dense.init_state(tp, "cpu")
+    assert tuple(st[1].featuremap.shape) == dense.event_layers[1].spec.out_shape
     with pytest.raises(NotImplementedError, match="bfloat16"):
         tnet.EventNetwork(ld, H, W, 1e-3, conv_mode="full", activation_dtype="bfloat16")
     with pytest.raises(ValueError, match="activation_dtype"):
@@ -185,7 +187,7 @@ def test_slice_limits_raise_not_implemented(rng):
         net.with_stem_fusion(1)
     tc, _ = _chunks(rng, 2, 4)
     with pytest.raises(ValueError, match="conv_mode='full'"):
-        dense.scan_parallel(tp, None, tc)
+        dense.scan_parallel(tp, st, tc)
 
 
 def test_params_from_jax_layout(rng):

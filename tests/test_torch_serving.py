@@ -333,6 +333,8 @@ def test_pipeline_slice_limits(rng):
                       (dict(ts_window=8), "ts_window")):
         with pytest.raises(NotImplementedError, match=match):
             YoloEventTorch(**model_kw, **kw)
+    # an incremental model's scan takes the sequential engine
     m = YoloEventTorch(**model_kw, conv_mode="dense")
-    with pytest.raises(NotImplementedError, match="incremental"):
-        m.scan(None, t_pack_chunks(_stream(rng, CAP), CAP, device="cpu"))
+    m.set_weights(_params(DSL, rng))
+    _, grids = m.scan(m.init_state(), t_pack_chunks(_stream(rng, CAP), CAP, device="cpu"))
+    assert tuple(grids.shape[1:]) == m.grid_shape
