@@ -150,10 +150,14 @@ def _make_io(spec: ConvSpec, state: ConvState, mask) -> LayerIO:
 def _full_io(spec: ConvSpec, kernel, bias, prev_io: LayerIO) -> LayerIO:
     """Full-recompute output: one conv of the predecessor's featuremap with
     the activation folded in, so ``surface`` is the activated map and
-    ``layer_actfn`` is ``None`` (the scalar 1 of the JAX package)."""
+    ``layer_actfn`` is ``None`` (the scalar 1 of the JAX package).  The
+    conv and the activation run in float32; the activated map is then
+    stored as ``spec.act_dtype`` (a bf16 cast rounds to nearest even, as
+    ``astype(jnp.bfloat16)`` does)."""
     fm = leaky(conv2d_dense(prev_io.featuremap, kernel, bias, spec.stride,
                             spec.padding), spec.alpha)
-    return LayerIO(surface=fm, layer_actfn=None, conv_actfn=None, mask=None)
+    return LayerIO(surface=fm.to(getattr(torch, spec.act_dtype)), layer_actfn=None,
+                   conv_actfn=None, mask=None)
 
 
 def conv_init(spec: ConvSpec, kernel, bias, prev_init_io: LayerIO

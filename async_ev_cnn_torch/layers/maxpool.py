@@ -41,7 +41,9 @@ def _full_pool_io(spec: PoolSpec, prev_io: LayerIO) -> LayerIO:
     """Dense max over the *activated* map.  The leaky activation is
     monotone, so this equals the activated value at the window argmax."""
     fm = maxpool_dense(prev_io.featuremap, spec.ksize, spec.stride, "VALID")
-    return LayerIO(surface=fm, layer_actfn=None, conv_actfn=None, mask=None)
+    # a max over bf16 inputs is exact in bf16
+    return LayerIO(surface=fm.to(getattr(torch, spec.act_dtype)), layer_actfn=None,
+                   conv_actfn=None, mask=None)
 
 
 def _gather(spec: PoolSpec, array, idx):

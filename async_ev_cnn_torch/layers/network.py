@@ -32,7 +32,8 @@ from async_ev_cnn_torch.layers.integration import (
 )
 from async_ev_cnn_torch.layers.maxpool import PoolSpec, pool_init, pool_step
 from async_ev_cnn_torch.layers.types import EventChunk, IntegrationState, LayerIO
-from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky
+from async_ev_cnn_torch.ops import stem
+from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky, matmul_precision
 from async_ev_cnn_torch.ops.integrate import integrate_parallel
 from async_ev_cnn_torch.ops.pool import maxpool_dense
 from async_ev_cnn_torch.utils.device import resolve_device
@@ -65,10 +66,6 @@ def build_layer_defs(
             f"activation_dtype must be 'float32' or 'bfloat16', got "
             f"{activation_dtype!r}"
         )
-    if activation_dtype == "bfloat16":
-        raise NotImplementedError(
-            "activation_dtype='bfloat16' waits for the port's precision-tier "
-            "slice; this slice stores activations in float32")
     # surface channel count follows the first conv's input channels:
     # 1 = polarity dropped (reference behavior), 2 = ON/OFF channels.
     first_conv_cin = next(
@@ -152,10 +149,6 @@ def _validate_stem_fusion(stem_fusion):
             or stem_fusion == "auto"):
         raise ValueError(
             f"stem_fusion must be True, False or 'auto', got {stem_fusion!r}")
-    if stem_fusion is True:
-        raise NotImplementedError(
-            "stem_fusion=True waits for the port of ops/stem.py; 'auto' never "
-            "fuses at the 'highest' tier, the only tier of this slice")
 
 
 class EventNetwork:
@@ -167,6 +160,13 @@ class EventNetwork:
     'full' and 'auto' (= 'full').  'sparse_pallas' runs the hand-written
     CUDA rulebook kernels (K3 at stride 1, K4 otherwise) on the card, and
     their plain versions on the CPU (:mod:`async_ev_cnn_torch.layers.conv2d`).
+
+    ``stem_fusion`` (``'auto'``, ``True`` or ``False``) decides whether the
+    parallel path runs a stem conv+pool pair as one space-to-depth conv
+    (:mod:`async_ev_cnn_torch.ops.stem`), by the JAX package's predicate
+    (:meth:`_fusion_active`).  ``activation_dtype='bfloat16'`` stores the
+    activated maps of the 'full' layers in bf16 between layers; the
+    incremental layers stay float32.
     """
 
     def __init__(
@@ -191,6 +191,16 @@ class EventNetwork:
         self.alpha = alpha
         self.out_shape = self.event_layers[-1].spec.out_shape
         self._stem_fusion = stem_fusion
+        self._act_dtype = activation_dtype
+        # conv+pool pairs the parallel path MAY run as one space-to-depth
+        # conv: indices into event_layers[1:] of the conv whose following
+        # pool could fold in; whether they fuse is _fusion_active's call
+        self._s2d_pairs = frozenset(
+            i
+            for i, (c, p) in enumerate(zip(self.event_layers[1:], self.event_layers[2:]))
+            if c.kind == "conv" and p.kind == "pool"
+            and stem.s2d_pair_applicable(c.spec, p.spec) and stem.s2d_pair_wins(c.spec)
+        )
         #: per conv layer of the sequential engine: host reads of device
         #: flags (``host_syncs``), ``dense_fallbacks`` and
         #: ``kernel_launches`` since the last :meth:`reset_counts`
@@ -207,6 +217,23 @@ class EventNetwork:
         clone = copy.copy(self)
         clone._stem_fusion = stem_fusion
         return clone
+
+    def _fusion_active(self) -> bool:
+        """Whether the candidate ``_s2d_pairs`` fuse, read at each call:
+        the JAX package's predicate over the tier,
+        ``ops.stem.allow_demoted_precision`` and the activation dtype.
+        ``True`` fuses at ``highest``, and at a demoted tier while
+        ``allow_demoted_precision`` stands; ``'auto'`` fuses only at the
+        ``default`` tier with float32 activations (the cell where the
+        fusion measured a win on the TPU; its H100 default is open);
+        ``False`` never fuses."""
+        prec = matmul_precision()
+        if self._stem_fusion is True:
+            return prec == "highest" or stem.allow_demoted_precision
+        if self._stem_fusion == "auto":
+            return (prec == "default" and stem.allow_demoted_precision
+                    and self._act_dtype == "float32")
+        return False
 
     # ---- memory model for the parallel-in-time path ---------------------
 
@@ -270,9 +297,10 @@ class EventNetwork:
         for ld in self.dense_tail:
             if ld.kind == "flatten":
                 x = x.reshape(*lead, -1)
-            else:  # fc
-                x = leaky(x @ params[f"w_{ld.name}"] + params[f"b_{ld.name}"],
+            else:  # fc: a bf16 featuremap meets float32 weights in float32
+                x = leaky(x.float() @ params[f"w_{ld.name}"] + params[f"b_{ld.name}"],
                           self.alpha)
+        # network outputs are float32 whatever the activation storage dtype
         return x.float()
 
     def forward(self, params, state: tuple, chunk: EventChunk, upto: int | None = None
@@ -327,17 +355,34 @@ class EventNetwork:
         where the JAX package vmaps over T).  Returns the YOLO-grid output
         ``[(N,) h, w, c]``.  ``upto`` truncates after that many conv/pool
         layers and returns the truncated featuremap (EXCLUSIVE over the
-        post-integration layers, as in the JAX package)."""
+        post-integration layers, as in the JAX package).  A fused stem pair
+        (:meth:`_fusion_active`) runs as one space-to-depth conv, unless
+        ``upto`` cuts inside it."""
         # surface >= 0, so featuremap == surface: no activation mask
         io = LayerIO(surface=frame, layer_actfn=None, conv_actfn=None, mask=None)
-        for i, (ld, st) in enumerate(zip(self.event_layers[1:], state[1:])):
+        layers, states = self.event_layers[1:], state[1:]
+        fuse = bool(self._s2d_pairs) and self._fusion_active()
+        i = 0
+        while i < len(layers):
             if upto is not None and i >= upto:
                 return io.featuremap
+            ld, st = layers[i], states[i]
+            if fuse and i in self._s2d_pairs and (upto is None or upto >= i + 2):
+                fm = stem.fused_conv_pool(io.featuremap, params[f"w_{ld.name}"],
+                                          params[f"b_{ld.name}"], ld.spec.alpha)
+                # one cast at the pair's pooled output: the float32 conv
+                # output is never stored
+                act = getattr(torch, layers[i + 1].spec.act_dtype)
+                io = LayerIO(surface=fm.to(act), layer_actfn=None, conv_actfn=None,
+                             mask=None)
+                i += 2
+                continue
             if ld.kind == "conv":
                 _, io = conv_step(ld.spec, params[f"w_{ld.name}"],
                                   params[f"b_{ld.name}"], st, io, 0.0)
             else:
                 _, io = pool_step(ld.spec, st, io, 0.0)
+            i += 1
         if upto is not None:
             return io.featuremap
         return self.apply_tail(params, io.featuremap.movedim(-3, -1))
@@ -424,5 +469,7 @@ def dense_forward(
             x = maxpool_dense(x, spec.ksize, spec.stride, "VALID")
             if variant == "numpy":
                 x = leaky(x, alpha)
+        # the event path's activation storage dtype, cast at the same points
+        x = x.to(getattr(torch, spec.act_dtype))
         outs[ld.name] = x
     return outs

@@ -3,13 +3,23 @@
 Counterpart of ``async_ev_cnn_tpu/ops/conv.py``.  The TF SAME pad formulas
 are copied verbatim; the conv is ``F.conv2d`` on the TF-padded input.
 
-Matmul tier: the port supports ``highest`` only, which is IEEE float32 in
-both cuDNN (convs) and cuBLAS (the fc tail).  PyTorch's default lets cuDNN
-run float32 convs in TF32, which keeps about three decimal digits and
-would quietly break the <= 1e-4 async-vs-dense contract, so
-:func:`set_matmul_precision` turns TF32 off in both, and
+Matmul tiers.  The JAX package names three operand precisions for every
+conv and GEMM; on the TPU ``highest`` is full float32, ``high`` bf16x3 and
+``default`` one bf16 pass.  On Hopper they map to:
+
+* ``highest``: IEEE float32 in cuDNN (convs) and cuBLAS (the fc tail), TF32
+  off in both.  PyTorch's default lets cuDNN run float32 convs in TF32,
+  which would quietly break the <= 1e-4 async-vs-dense contract.
+* ``high``: IEEE float32 too.  bf16x3 keeps about 16 bits of mantissa;
+  TF32 keeps 10, so TF32 would be a less accurate tier than the one it
+  stands for, and neither library offers a 3-pass TF32 conv.
+* ``default``: TF32 in cuDNN and cuBLAS (``allow_tf32``).  The hand-written
+  gather-GEMM kernels round both operands to TF32 (``cvt.rna.tf32.f32``)
+  and sum in float32, as the JAX kernels read ``matmul_precision()``.
+
 :func:`conv2d_dense` applies the tier again before every conv on the card
-(the tier is process-wide here as in the JAX package).
+(the tier is process-wide here as in the JAX package).  On the CPU the tier
+changes nothing, as the JAX CPU backend ignores ``Precision``.
 """
 
 from __future__ import annotations
@@ -24,19 +34,13 @@ _MATMUL_PRECISION = "highest"
 
 
 def set_matmul_precision(name: str) -> None:
-    """Set the process-wide conv/GEMM precision tier.
-
-    Only ``'highest'`` exists in this slice of the port; ``'high'`` and
-    ``'default'`` raise until an H100 drift run fixes their Hopper mapping
-    (TF32, bf16 or 3xTF32)."""
+    """Set the process-wide conv/GEMM precision tier: ``'highest'``,
+    ``'high'`` or ``'default'`` (see the module docstring for the Hopper
+    mapping)."""
     global _MATMUL_PRECISION
     if name not in _TIERS:
         raise ValueError(
             f"matmul precision must be one of {sorted(_TIERS)}, got {name!r}")
-    if name != "highest":
-        raise NotImplementedError(
-            f"matmul precision {name!r} waits for the port's precision-tier "
-            "slice; only 'highest' (IEEE float32) is supported")
     _MATMUL_PRECISION = name
     _apply_tier()
 
@@ -45,10 +49,34 @@ def matmul_precision() -> str:
     return _MATMUL_PRECISION
 
 
+def tier_uses_tf32() -> bool:
+    """True when the current tier runs float32 products as TF32 on the card."""
+    return _MATMUL_PRECISION == "default"
+
+
 def _apply_tier() -> None:
-    # 'highest': no TF32 anywhere
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = tier_uses_tf32()
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 ``x`` to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped
+    13-bit ulp to the magnitude bits, then clear them (a carry into the
+    exponent is the correct rounding up).  Finite inputs only."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tier_operands(*tensors):
+    """The kernels' operands as the current tier rounds them: TF32 on the
+    card at ``'default'``, unchanged otherwise (on the CPU the tier changes
+    nothing).  The plain versions of the gather-GEMM kernels call this so
+    that on the card they compute what the kernels compute."""
+    if tier_uses_tf32() and all(t.is_cuda for t in tensors):
+        return tuple(round_tf32(t) for t in tensors)
+    return tuple(t.float() for t in tensors)
 
 
 def tf_same_pads(in_h: int, in_w: int, k_h: int, k_w: int, stride: int):

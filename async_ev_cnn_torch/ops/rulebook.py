@@ -84,6 +84,26 @@ def scatter_site_values(dest: torch.Tensor, ys, xs, valid, vals: torch.Tensor):
     return out[:, : oh * ow].reshape(o, oh, ow)
 
 
+def active_rows(active, row_capacity: int):
+    """The output rows of ``active [oh, ow]`` holding an active site, in
+    ascending order, then zeros, at a fixed ``row_capacity``
+    (``jnp.nonzero(..., size=row_capacity, fill_value=0)``).
+
+    Returns ``(row_idx [R] int64, row_valid [R] bool, overflow)``,
+    ``overflow`` a 0-dim bool tensor, True when more rows are active than
+    ``row_capacity``.  Nothing is read back to the host."""
+    dev = active.device
+    row_act = active.any(dim=1)  # [oh]
+    oh = row_act.shape[0]
+    n_rows = row_act.sum()
+    # the active rows in ascending order: top-k of a distinct int32 score
+    score = (row_act.to(torch.int32) * (oh + 1)
+             - torch.arange(oh, dtype=torch.int32, device=dev))
+    first = torch.topk(score, row_capacity).indices
+    row_valid = torch.arange(row_capacity, device=dev) < n_rows
+    return torch.where(row_valid, first, 0), row_valid, n_rows > row_capacity
+
+
 def rows_conv_pair(featuremap, conv_actfn, active, kernel, bias, stride: int,
                    row_capacity: int, pads):
     """Row-granular sparse conv of the (featuremap, conv-actfn) pair.
@@ -102,16 +122,7 @@ def rows_conv_pair(featuremap, conv_actfn, active, kernel, bias, stride: int,
     (pt, _), (pl, pr) = pads
     h = featuremap.shape[1]
     dev = featuremap.device
-    row_act = active.any(dim=1)  # [oh]
-    oh = row_act.shape[0]
-    n_rows = row_act.sum()
-    overflow = n_rows > row_capacity
-    # the active rows in ascending order: top-k of a distinct int32 score
-    score = (row_act.to(torch.int32) * (oh + 1)
-             - torch.arange(oh, dtype=torch.int32, device=dev))
-    first = torch.topk(score, row_capacity).indices
-    row_valid = torch.arange(row_capacity, device=dev) < n_rows
-    row_idx = torch.where(row_valid, first, 0)
+    row_idx, row_valid, overflow = active_rows(active, row_capacity)
 
     take = (row_idx[:, None] * stride - pt
             + torch.arange(kh, device=dev)[None, :])     # [R, kh]

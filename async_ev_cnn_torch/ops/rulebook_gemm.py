@@ -18,6 +18,11 @@ kernel, a ``[O]`` bias (added to the featuremap plane only) and int32
   per site ``(ys, xs)`` the ``[kh, kw, C]`` box at ``(ys*s, xs*s)`` ->
   ``[K, O]`` per plane.
 
+Both read the matmul tier (:mod:`async_ev_cnn_torch.ops.conv`): at
+``'default'`` on the card the kernels and their plain versions round both
+operands to TF32 and sum in float32; otherwise, and always on the CPU,
+they multiply the float32 operands as they are.
+
 The JAX package's channel padding to 128 lanes (``pad_lanes_128``) is a TPU
 layout rule and has no counterpart.  A wrapper runs its plain version for
 tensors on the CPU and the kernel for tensors on the card, or raises; it
@@ -34,6 +39,7 @@ from async_ev_cnn_torch.ops import cuda_build
 from async_ev_cnn_torch.ops.cuda_build import check as _check
 from async_ev_cnn_torch.ops.cuda_build import on_cpu as _on_cpu
 from async_ev_cnn_torch.ops.cuda_build import ptr as _ptr
+from async_ev_cnn_torch.ops.conv import tier_operands, tier_uses_tf32
 
 BLOCK_W = 8
 
@@ -68,13 +74,17 @@ def _gather_boxes(plane, rows, cols):
 def _taps_gemm(boxes, kernel_hwio, bias, sites: int):
     """``bias + sum_{dy,dx} boxes[:, dy, dx + s] @ W[dy, dx]`` over the
     ``sites`` adjacent sites ``s`` of each box, per tap as the TPU kernels
-    run it -> ``[K, sites, O]``."""
+    run it -> ``[K, sites, O]``; the operands rounded as the tier rounds
+    them (:func:`~async_ev_cnn_torch.ops.conv.tier_operands`).  Operands
+    rounded to TF32 pass a TF32 product unchanged, so each tap's product
+    is exact at every tier and only the float32 sums round."""
     kh, kw, _, o = kernel_hwio.shape
     k = boxes.shape[0]
+    boxes, kernel_hwio = tier_operands(boxes, kernel_hwio)
     acc = bias.float().expand(k, sites, o).clone()
     for dy in range(kh):
         for dx in range(kw):
-            acc = acc + boxes[:, dy, dx:dx + sites, :] @ kernel_hwio[dy, dx].float()
+            acc = acc + boxes[:, dy, dx:dx + sites, :] @ kernel_hwio[dy, dx]
     return acc
 
 
@@ -172,7 +182,8 @@ def rulebook_gather_gemm_blocks(fm_hwc, ca_hwc, kernel_hwio, bias, by, bx,
     chunk = _channel_chunk(_SITES_PER_BLOCK // BLOCK_W, kh, kw, BLOCK_W + kw - 1, c)
     _launch("rulebook_gather_gemm_blocks", dev, _ptr(fm_hwc), _ptr(ca_hwc),
             _ptr(kernel_hwio), _ptr(bias), _ptr(by), _ptr(bx), _ptr(out_fm), _ptr(out_ca),
-            *(ctypes.c_int(v) for v in (k, hp, wp, c, o, kh, kw, chunk)))
+            *(ctypes.c_int(v) for v in (k, hp, wp, c, o, kh, kw, chunk,
+                                        tier_uses_tf32())))
     return out_fm, out_ca
 
 
@@ -201,5 +212,6 @@ def rulebook_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs,
     chunk = _channel_chunk(_SITES_PER_BLOCK, kh, kw, kw, c)
     _launch("rulebook_gather_gemm", dev, _ptr(fm_hwc), _ptr(ca_hwc),
             _ptr(kernel_hwio), _ptr(bias), _ptr(ys), _ptr(xs), _ptr(out_fm), _ptr(out_ca),
-            *(ctypes.c_int(v) for v in (k, hp, wp, c, o, kh, kw, stride, chunk)))
+            *(ctypes.c_int(v) for v in (k, hp, wp, c, o, kh, kw, stride, chunk,
+                                        tier_uses_tf32())))
     return out_fm, out_ca

@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases, one line each on standard output:
 
 1. environment: the card, its power limit, torch/CUDA versions, TF32 off;
-2. build: both surface-scan kernels from async_ev_cnn_torch/csrc with nvcc;
+2. build: every kernel source of async_ev_cnn_torch/csrc with nvcc, one
+   nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version bit for bit at
    the eFCN's full width (160x224, T=200 chunks of 256 events), against
    each other, on a 2-channel ragged case, on a large-dt case, and against
@@ -54,6 +55,37 @@ radius 8, ts gaps 1..14 us, the JAX benchmark's clustered_stream):
     debug mode) against the layers' counted flag reads, then one chunk
     under torch.profiler.
 
+Then the kernels and paths that the JAX package keeps beside its main
+paths, and the precision options:
+
+13. K5 (rows_gather_conv): at every conv layer's shapes, its active rows
+    taken from that layer's real mask of the clustered stream at its
+    row_capacity, against its plain version within 1e-5 * (1 + max
+    |plain|), with its device time, the plain version's, the bound and
+    the device time of rows_conv_pair's own conv over the gathered row
+    stack; then its path, the 'sparse_rows' update of one chunk through
+    K5 (kernel_rows_conv_pair) at every layer, within the same tolerance
+    of rows_conv_pair (counts set to 0 just before, read just after); and
+    K3 and K5 against their plain versions at the 'default' tier (TF32
+    operands), same tolerance;
+14. K6 (fused_stem) on the T=200 surfaces of a full-width dispatch (its
+    path: one call, counted), bit for bit against its plain version and
+    within 1e-5 of fused_conv_pool and of the direct 'full' conv1 -> pool1
+    at 'highest'; the times of all four;
+15. K7 (gather_copy): each shape and kh against its plain version at grid
+    4, 2 copies, bit for bit; then its path, the slope table of all 12
+    (shape, kh) rows (counted): µs a copy, µs a row, GB/s and its share of
+    3.35 TB/s; then each row again at the table's grid 16384 x 8 copies
+    against its plain version, bit for bit;
+16. the stem path: the full-width eFCN scan_parallel at T=200, unfused
+    against stem_fusion=True at 'highest': outputs within 1e-5, events/s of
+    both, and the fused pair's conv calls;
+17. tiers: at 'highest', 'high', 'default' and 'default' with bf16
+    activations: the parallel path's events/s under 'auto', fused against
+    unfused, the full-width gate (200 steps) in 'full' and 'dense', and at
+    'default' the gate in 'sparse_pallas' (recorded, not held to 1e-4);
+    'highest' is restored whatever happens.
+
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's and K2's ``ms`` are CUDA-event times over many calls;
 K3's and K4's ``ms`` are their kernels' device time per call from
@@ -70,6 +102,7 @@ import json
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -90,6 +123,7 @@ SEQ_CHUNKS = 64
 WARM_CHUNKS = 8
 CAPACITY_FRAC = 0.25
 KERNEL_REL_TOL = 1e-5
+TIER_GATE_STEPS = 200
 
 
 def require(cond, what: str) -> None:
@@ -163,22 +197,34 @@ def device_ms(fn, kernel_key=None, iters: int = 20) -> float:
     """Device time per call of ``fn`` under torch.profiler: the kernels
     whose name holds ``kernel_key`` (every kernel when None), summed over
     ``iters`` calls.  Unlike :func:`time_ms` it leaves out the host's time
-    between launches, which sets a small kernel's wall time."""
+    between launches, which sets a small kernel's wall time.
+
+    A trace must record exactly ``iters`` launches of a named kernel
+    (``fn`` launches it once a call).  A plain trace has lost one kernel
+    record once on the H100 (a trace with a profiler schedule loses them
+    often), so a trace short of ``iters`` is taken again, 3 traces at
+    most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and (kernel_key is None or kernel_key in e.key)]
-    if kernel_key is not None:
-        n = sum(e.count for e in hits)
-        require(n == iters, f"profiled {n} launches of {kernel_key}, expected {iters}")
-    return sum(e.self_device_time_total for e in hits) / iters / 1e3
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and (kernel_key is None or kernel_key in e.key)]
+        total_ms = sum(e.self_device_time_total for e in hits) / 1e3
+        if kernel_key is None:
+            return total_ms / iters
+        counts.append(sum(e.count for e in hits))
+        if counts[-1] == iters:
+            return total_ms / iters
+    raise RuntimeError(f"chip_smoke check failed: profiled {counts} launches of "
+                       f"{kernel_key} in 3 traces of {iters} calls")
 
 
 def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
@@ -278,6 +324,17 @@ def box_pixels(rows, cols, hp, wp, kh, box_w, stride=1) -> int:
     return int(seen.sum())
 
 
+def kernel_err(fn, plain, args, what: str) -> float:
+    """max |kernel - plain| over both planes of a rulebook-style kernel,
+    held to KERNEL_REL_TOL * (1 + max |plain|)."""
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+    tol = KERNEL_REL_TOL * (1 + max(float(w_.abs().max()) for w_ in want))
+    require(err <= tol, f"{what} differs from its plain version by {err} > {tol}")
+    return err
+
+
 def rulebook_case(name, spec, kernel, bias, prev_io, dev):
     """One rulebook kernel call at a layer's shapes, from its real active
     mask: the kernel against its plain version, the times and the bound."""
@@ -309,13 +366,8 @@ def rulebook_case(name, spec, kernel, bias, prev_io, dev):
         kernel_fn, plain_fn = rg.rulebook_gather_gemm, rg.rulebook_gather_gemm_plain
         kwargs = {"stride": spec.stride}
         sites_per_box, box_w, cols_scale = 1, kw, spec.stride
-    got = kernel_fn(*args, **kwargs)
-    want = plain_fn(*args, **kwargs)
-    torch.cuda.synchronize()
-    err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
-    tol = KERNEL_REL_TOL * (1 + max(float(w_.abs().max()) for w_ in want))
-    require(err <= tol, f"{name}: {kernel_fn.__name__} differs from its plain version "
-            f"by {err} > {tol}")
+    err = kernel_err(partial(kernel_fn, **kwargs), partial(plain_fn, **kwargs), args,
+                     f"{name}: {kernel_fn.__name__}")
     # the work this mask needs: the valid boxes' distinct input pixels of
     # both planes, the weights and bias, the coordinates, and the valid
     # boxes' outputs of both planes; 2 flops (one FFMA) per term
@@ -339,6 +391,115 @@ def rulebook_case(name, spec, kernel, bias, prev_io, dev):
             pair, kernel, None, spec.stride, spec.padding)),
         "bound": bound_ms(n_bytes, n_ops),
     }
+
+
+def rows_phase(dev, net, params, ios):
+    """Phase 13: K5 at every conv layer's shapes from the real masks of the
+    clustered stream, then its path, then K3 and K5 at the 'default' tier
+    ('highest' is restored whatever happens).  Returns K5's entry of the
+    kernels' JSON line."""
+    from async_ev_cnn_torch.ops import conv as tconv
+    from async_ev_cnn_torch.ops import masks as tmasks
+    from async_ev_cnn_torch.ops import rows_gemm as tr
+    from async_ev_cnn_torch.ops import rulebook as trb
+    from async_ev_cnn_torch.ops import rulebook_gemm as rg
+    from async_ev_cnn_torch.ops.conv import set_matmul_precision
+
+    layers = net.event_layers
+    convs = [(ld, ios[layers[j - 1].name]) for j, ld in enumerate(layers) if ld.kind == "conv"]
+    cases = []
+    tier_err = {"K3": 0.0, "K5": 0.0}
+    for ld, prev_io in convs:
+        spec = ld.spec
+        kernel, bias = params[f"w_{ld.name}"], params[f"b_{ld.name}"].float().contiguous()
+        active = tmasks.dilate_mask(prev_io.mask, spec.ksize, spec.stride, spec.pads)
+        row_idx, row_valid, _ = trb.active_rows(active, spec.row_capacity)
+        rows = row_idx.to(torch.int32)
+        fm, ca = hwc_padded(spec, prev_io.featuremap), hwc_padded(spec, prev_io.conv_actfn)
+        w_hwio = kernel.permute(2, 3, 1, 0).contiguous().float()
+        args_ = (fm, ca, w_hwio, bias, rows)
+        err = kernel_err(tr.rows_gather_conv, tr.rows_gather_conv_plain, args_,
+                         f"{ld.name}: K5")
+        # the 'default' tier: both kernels round their operands to TF32
+        by, bx, _, _ = tmasks.mask_to_block_coords(active, spec.block_capacity, rg.BLOCK_W)
+        try:
+            set_matmul_precision("default")
+            for name, fn, plain, a in (
+                    ("K3", rg.rulebook_gather_gemm_blocks, rg.rulebook_gather_gemm_blocks_plain,
+                     (fm, ca, w_hwio, bias, by, bx)),
+                    ("K5", tr.rows_gather_conv, tr.rows_gather_conv_plain, args_)):
+                tier_err[name] = max(tier_err[name], kernel_err(
+                    fn, plain, a, f"{ld.name}: {name} at 'default'"))
+        finally:
+            set_matmul_precision("highest")
+        hp, wp, c = fm.shape
+        kh, kw = spec.ksize
+        o = kernel.shape[0]
+        ow = wp - kw + 1
+        # the work this mask needs: the valid rows' distinct input rows of
+        # both planes, the weights, bias and row list, the valid rows'
+        # outputs of both planes; one FFMA (2 flops) a term
+        valid_rows = row_idx[row_valid].cpu().numpy()
+        in_rows = len({int(r) + dy for r in valid_rows for dy in range(kh)})
+        n_valid = len(valid_rows)
+        n_bytes = 4 * (2 * in_rows * wp * c + kh * kw * c * o + o + rows.numel()
+                       + 2 * n_valid * ow * o)
+        n_ops = 2 * 2 * n_valid * ow * kh * kw * c * o
+        # rows_conv_pair's own conv: one VALID conv over the [2R, C, kh, Wp]
+        # stack of both planes' row windows
+        take = row_idx[:, None] + torch.arange(kh, device=dev)[None, :]
+        stack = torch.cat([fm[take], ca[take]]).permute(0, 3, 1, 2).contiguous()
+        cases.append({
+            "layer": ld.name, "r": rows.numel(), "valid": n_valid, "c": c, "o": o,
+            "ow": ow, "err": err,
+            "ms": device_ms(lambda: tr.rows_gather_conv(*args_), "rulebook_kernel"),
+            "plain_ms": time_ms(lambda: tr.rows_gather_conv_plain(*args_), 5),
+            "library_ms": device_ms(lambda: tconv.conv2d_dense(
+                stack, kernel, None, (1, 1), "VALID")),
+            "bound": bound_ms(n_bytes, n_ops),
+        })
+
+    # the path: one chunk's 'sparse_rows' update of every layer through K5
+    tr.reset_launches()
+    path_err = 0.0
+    for ld, prev_io in convs:
+        spec = ld.spec
+        active = tmasks.dilate_mask(prev_io.mask, spec.ksize, spec.stride, spec.pads)
+        plane_args = (prev_io.featuremap, prev_io.conv_actfn, active,
+                      params[f"w_{ld.name}"], params[f"b_{ld.name}"])
+        got = tr.kernel_rows_conv_pair(*plane_args, spec.row_capacity, spec.pads)
+        want = trb.rows_conv_pair(*plane_args, spec.stride, spec.row_capacity, spec.pads)
+        require(all(torch.equal(got[i], want[i]) for i in (0, 1, 4)),
+                f"{ld.name}: K5's rows differ from rows_conv_pair's")
+        err = max(float((got[i] - want[i]).abs().max()) for i in (2, 3))
+        tol = KERNEL_REL_TOL * (1 + max(float(want[i].abs().max()) for i in (2, 3)))
+        require(err <= tol, f"{ld.name}: K5's 'sparse_rows' update differs from "
+                f"rows_conv_pair's by {err} > {tol}")
+        path_err = max(path_err, err)
+    torch.cuda.synchronize()
+    path_launches = tr.LAUNCHES["rows_gather_conv"]
+    require(path_launches == len(convs),
+            f"K5's path launched {path_launches} times for {len(convs)} layers")
+    print("rows-kernel: K5 == plain within "
+          f"{KERNEL_REL_TOL} * (1 + max|plain|) at every layer; " + "; ".join(
+              f"{r['layer']} R={r['r']} ({r['valid']} valid) C={r['c']} O={r['o']} "
+              f"ow={r['ow']}: device {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
+              f"rows_conv_pair's conv device {r['library_ms']:.4f}, bound "
+              f"{r['bound'][0]:.5f} {r['bound'][1]}), err {r['err']:.2e}" for r in cases)
+          + f"; path: the 'sparse_rows' update of one chunk through K5 at "
+          f"{len(convs)} layers within {path_err:.2e} of rows_conv_pair, launches "
+          f"{path_launches}; at 'default' (operands rounded to TF32) K3 and K5 within "
+          f"the same tolerance of their plain versions at every layer, max abs err K3 "
+          f"{tier_err['K3']:.2e}, K5 {tier_err['K5']:.2e}", flush=True)
+    b_bytes = sum(r["bound"][0] for r in cases if r["bound"][1] == "bytes")
+    b_ops = sum(r["bound"][0] for r in cases if r["bound"][1] == "operations")
+    return {"name": "rows_gather_conv", "route": "cuda",
+            "source": "async_ev_cnn_torch/csrc/rulebook.cu",
+            "replaces": "async_ev_cnn_tpu/ops/pallas_rows.py:92",
+            "launches": path_launches, "max_abs_err": max(r["err"] for r in cases),
+            "ms": sum(r["ms"] for r in cases), "plain_ms": sum(r["plain_ms"] for r in cases),
+            "bound_ms": b_bytes + b_ops, "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": sum(r["library_ms"] for r in cases)}
 
 
 def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
@@ -521,6 +682,8 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
           "time by op: " + "; ".join(f"{k[:60]} x{n} {us / 1e3:.3f} ms" for k, n, us in top),
           flush=True)
 
+    k5 = rows_phase(dev, net, params, ios)
+
     def total(key):
         return sum(r[key] for r in k3)
 
@@ -543,7 +706,197 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound"][0],
          "bound_by": k4["bound"][1], "library_ms": None,
          "dense_pair_ms": k4["dense_pair_ms"], "call_ms": k4["call_ms"]},
+        k5,
     ]
+
+
+def stem_kernel_phase(dev, model, c0):
+    """Phase 14: K6 on the T=200 surfaces of a full-width dispatch, against
+    its plain version, fused_conv_pool and the direct conv1 -> pool1.
+    Returns K6's entry of the kernels' JSON line."""
+    from async_ev_cnn_torch.ops import fused_stem as tf
+    from async_ev_cnn_torch.ops import stem as tstem
+    from async_ev_cnn_torch.ops.integrate import integrate_parallel
+
+    st0 = model.init_state()
+    surfaces, _ = integrate_parallel(st0[0].surface, st0[0].prev_ts, c0, LEAK)
+    x = surfaces[:, 0].contiguous()                                  # [T, H, W]
+    w1, b1 = model.params["w_conv1"], model.params["b_conv1"].float().contiguous()
+    taps = tf.w_taps_from_oihw(w1)
+    # the path: one fused stem over the dispatch's surfaces
+    tf.reset_launches()
+    got = tf.fused_stem(x, taps, b1, 0.1)
+    torch.cuda.synchronize()
+    launches = tf.LAUNCHES["fused_stem"]
+    require(launches == 1, f"K6's path launched {launches} times")
+    want = tf.fused_stem_plain(x, taps, b1, 0.1)
+    fused = tstem.fused_conv_pool(surfaces, w1, b1, 0.1)
+    direct = model.net.full_frame_forward(model.params, st0, surfaces, upto=2)
+    torch.cuda.synchronize()
+    require(bit_equal(got, want), "K6 (fused_stem) != its plain version")
+    err_f = float((got - fused).abs().max())
+    err_d = float((got - direct).abs().max())
+    require(err_f <= 1e-5 and err_d <= 1e-5,
+            f"K6 differs from fused_conv_pool by {err_f}, from the direct stem by {err_d}")
+    t, h, w = x.shape
+    o = taps.shape[1]
+    times = {
+        "ms": time_ms(lambda: tf.fused_stem(x, taps, b1, 0.1), 50),
+        "plain_ms": time_ms(lambda: tf.fused_stem_plain(x, taps, b1, 0.1), 3),
+        "library_ms": time_ms(lambda: model.net.full_frame_forward(
+            model.params, st0, surfaces, upto=2), 10),
+        "fused_conv_pool_ms": time_ms(lambda: tstem.fused_conv_pool(surfaces, w1, b1, 0.1), 10),
+    }
+    b_ms, b_by = bound_ms(4 * (t * h * w + 10 * o + t * o * (h // 2) * (w // 2)),
+                          2 * 9 * t * o * h * w)
+    print(f"stem-kernel: K6 over the {t} surfaces of a dispatch (C=1 {h}x{w}, O={o}): "
+          f"bit-equal to its plain version, within {err_f:.2e} of fused_conv_pool and "
+          f"{err_d:.2e} of the direct 'full' conv1 -> pool1; K6 {times['ms']:.4f} ms (plain "
+          f"{times['plain_ms']:.3f}, direct stem {times['library_ms']:.4f}, fused_conv_pool "
+          f"{times['fused_conv_pool_ms']:.4f}, bound {b_ms:.4f} {b_by}); launches "
+          f"{launches}", flush=True)
+    return {"name": "fused_stem", "route": "cuda",
+            "source": "async_ev_cnn_torch/csrc/fused_stem.cu",
+            "replaces": "examples/pallas_stem_negative.py:74", "launches": launches,
+            "max_abs_err": float((got - want).abs().max()), "bound_ms": b_ms,
+            "bound_by": b_by, **times}
+
+
+def gather_copy_phase(dev):
+    """Phase 15: K7 against its plain version on every shape, then the slope
+    table.  Returns K7's entry of the kernels' JSON line."""
+    from async_ev_cnn_torch.scripts import dma_microbench as dmb
+
+    inputs = dmb.make_inputs(0, dev)
+    small = dmb.check_against_plain(inputs)
+    require(all(e == 0.0 for _, _, e in small), f"K7 differs from its plain version: {small}")
+    n_copies, g1, g2 = 8, 4096, 16384
+    # the path: the microbenchmark's slope table, counted
+    dmb.reset_launches()
+    table = dmb.slope_table(inputs, n_copies, g1, g2)
+    torch.cuda.synchronize()
+    launches = dmb.LAUNCHES["gather_copy"]
+    require(launches == len(table) * 2 * 5, f"K7's path launched {launches} times")
+    # every row of the table at its larger grid, where box_sp / rows_sp wrap
+    # around the 16384 corners and flat's offsets around the source
+    large = dmb.check_against_plain(inputs, g2, n_copies)
+    require(all(e == 0.0 for _, _, e in large),
+            f"K7 differs from its plain version at grid {g2} x {n_copies}: {large}")
+    print(f"gather-copy: K7 == plain bit for bit on all {len(small)} (shape, kh) rows at grid 4 "
+          f"x 2 copies and at grid {g2} x {n_copies}; slope between grids {g1} and {g2} x "
+          f"{n_copies} copies (the 171 MB "
+          "source exceeds the 50 MB L2; box_sp/rows_sp revisit 16384 corners): " + "; ".join(
+              f"{r['shape']} kh={r['kh']} {r['us_per_copy']:.4f} us/copy "
+              f"{r['us_per_row']:.4f} us/row {r['gb_s']:.1f} GB/s "
+              f"({100 * r['share']:.1f}% of 3.35 TB/s)" for r in table)
+          + f"; launches {launches}", flush=True)
+    # the entry: one call of the box shape at kh=3 and grid g2
+    ref = next(r for r in table if r["shape"] == "box" and r["kh"] == 3)
+    n_bytes = g2 * n_copies * dmb.copy_bytes("box", 3) + 4 * (g2 + 1) * dmb.C
+    b_ms, b_by = bound_ms(n_bytes, g2 * dmb.C)
+    return {"name": "gather_copy", "route": "cuda",
+            "source": "async_ev_cnn_torch/csrc/gather_copy.cu",
+            "replaces": "examples/dma_microbench.py:152", "launches": launches,
+            "max_abs_err": max(e for _, _, e in small + large), "ms": ref["t_g2_ms"],
+            "plain_ms": time_ms(lambda: dmb.run_plain(*inputs, g2, n_copies, "box", 3), 1, 2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "slope": [{k: r[k] for k in ("shape", "kh", "us_per_copy", "gb_s")} for r in table]}
+
+
+def dispatch_rate(net, params, c0, n: int = 4):
+    """events/s and the outputs of ``n`` timed scan_parallel dispatches of
+    the chunks ``c0`` from the initial state (after one warm-up)."""
+    st = net.init_state(params, c0.y.device)
+    _, out = net.scan_parallel(params, st, c0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        _, out = net.scan_parallel(params, st, c0)
+    torch.cuda.synchronize()
+    return n * int(c0.valid.sum()) / (time.perf_counter() - t0), out
+
+
+def stem_path_phase(model, c0, smi):
+    """Phase 16: the parallel path unfused against stem_fusion=True at
+    'highest'."""
+    from async_ev_cnn_torch.ops import stem as tstem
+
+    net, params = model.net, model.params
+    fused_net = net.with_stem_fusion(True)
+    require(not net._fusion_active() and fused_net._fusion_active(),
+            "at 'highest' 'auto' must not fuse and True must")
+    rates = {"unfused": [], "fused": []}
+    outs = {}
+    tstem.reset_calls()
+    for name in ("unfused", "fused", "fused", "unfused"):
+        rate, outs[name] = dispatch_rate(fused_net if name == "fused" else net, params, c0)
+        rates[name].append(rate)
+    calls = tstem.CALLS["fused_conv_pool"]
+    require(calls == 2 * 5, f"the fused pair's conv ran {calls} times in 10 fused dispatches")
+    err = float((outs["fused"] - outs["unfused"]).abs().max())
+    require(err <= 1e-5, f"the fused stem path differs from the unfused one by {err}")
+    print(f"stem-path: scan_parallel at 'highest', T={T_CHUNKS}: stem_fusion=True within "
+          f"{err:.2e} of the unfused path; events/s unfused "
+          f"{', '.join(f'{r:.0f}' for r in rates['unfused'])}, fused "
+          f"{', '.join(f'{r:.0f}' for r in rates['fused'])} (runs in the order unfused, "
+          f"fused, fused, unfused); the fused pair's conv ran {calls} times in 10 fused "
+          f"dispatches; card {smi!r}", flush=True)
+
+
+def tier_phase(dev, args, layer_defs, num_classes, num_bbox, c0, smi):
+    """Phase 17: the tiers and bf16 activations on the parallel path and the
+    full-width gate; 'highest' is restored whatever happens."""
+    from async_ev_cnn_torch.models.yolo import YoloEventTorch
+    from async_ev_cnn_torch.ops import stem as tstem
+    from async_ev_cnn_torch.ops.conv import set_matmul_precision
+    from async_ev_cnn_torch.utils.equivalence import make_stream, run_equivalence
+
+    weights = make_params(layer_defs, np.random.RandomState(0))
+
+    def model(mode, act="float32"):
+        m = YoloEventTorch(
+            args.frame_h, args.frame_w, num_classes, layer_defs, args.yolo_cnn_padding,
+            args.yolo_num_cells_h, args.yolo_num_cells_w, num_bbox, alpha=0.1,
+            leak=args.leak, conv_mode=mode, capacity_frac=CAPACITY_FRAC,
+            activation_dtype=act, device=dev)
+        m.set_weights(weights)
+        return m
+
+    gate_chunks = make_stream(np.random.RandomState(0), TIER_GATE_STEPS, 200, H, W,
+                              max_dt=30, device=dev)
+    lines = []
+    try:
+        for tier, act in (("highest", "float32"), ("high", "float32"),
+                          ("default", "float32"), ("default", "bfloat16")):
+            set_matmul_precision(tier)
+            full = model("full", act)
+            tstem.reset_calls()
+            rate_auto, out_auto = dispatch_rate(full.net, full.params, c0)
+            fused = tstem.CALLS["fused_conv_pool"] > 0
+            require(fused == full.net._fusion_active()
+                    and fused == (tier == "default" and act == "float32"),
+                    f"'auto' fused={fused} at {tier}/{act}")
+            unfused = full.net.with_stem_fusion(False)
+            rate_off, out_off = dispatch_rate(unfused, full.params, c0)
+            diff = float((out_auto - out_off).abs().max())
+            gate = {}
+            for mode in ("full", "dense") + (("sparse_pallas",) if (tier, act) == (
+                    "default", "float32") else ()):
+                m = full if mode == "full" else model(mode, act)
+                rep = run_equivalence(m.net, m.params, gate_chunks, device=dev)
+                gate[mode] = max(rep.max_diff.values())
+            require(gate["full"] <= OUT_TOL, f"{tier}/{act}: 'full' gate {gate['full']}")
+            if tier != "default":
+                require(gate["dense"] <= OUT_TOL, f"{tier}/{act}: 'dense' gate {gate['dense']}")
+            lines.append(
+                f"{tier}/{act}: {rate_auto:.0f} events/s under 'auto' ({'fused' if fused else 'not fused'}; "
+                f"stem_fusion=False {rate_off:.0f}, outputs {diff:.2e} apart); gate over "
+                f"{TIER_GATE_STEPS} steps " + ", ".join(f"{k} {v:.3e}" for k, v in gate.items()))
+    finally:
+        set_matmul_precision("highest")
+    require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 still on after the tiers")
+    print("tiers: " + "; ".join(lines) + f"; card {smi!r}", flush=True)
 
 
 def main() -> int:
@@ -584,7 +937,7 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("surface_scan", "rulebook")
+    sources = ("surface_scan", "rulebook", "fused_stem", "gather_copy")
     cuda_build.load_all(sources)  # one nvcc per source, started together
     parts = []
     for src in sources:
@@ -772,6 +1125,10 @@ def main() -> int:
           flush=True)
 
     rulebook_kernels = incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi)
+    stem_kernel = stem_kernel_phase(dev, model, c0)
+    gather_copy = gather_copy_phase(dev)
+    stem_path_phase(model, c0, smi)
+    tier_phase(dev, args, layer_defs, num_classes, num_bbox, c0, smi)
 
     sources = {"surface_scan_events": "async_ev_cnn_tpu/ops/pallas_scan.py:273",
                "surface_scan_tsmap": "async_ev_cnn_tpu/ops/pallas_scan.py:105"}
@@ -787,7 +1144,7 @@ def main() -> int:
             # no single PyTorch call computes the T-step clamped recurrence
             "library_ms": None,
         })
-    print(json.dumps({"kernels": kernels + rulebook_kernels}))
+    print(json.dumps({"kernels": kernels + rulebook_kernels + [stem_kernel, gather_copy]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -163,26 +163,27 @@ def test_build_layer_defs_match_jax():
 
 
 def test_slice_limits_raise_not_implemented(rng):
-    """What the port does not carry yet raises NotImplementedError, never a
-    quiet fallback: bf16 activations, stem fusion.  The incremental modes
-    are carried now (tests/test_torch_incremental.py); an incremental net
-    still has no parallel-in-time path."""
+    """The limits the port keeps: an incremental net has no parallel-in-time
+    path, and bad option values raise.  bf16 activations and stem fusion,
+    which earlier slices refused, are carried now (tests/test_torch_tiers.py
+    and tests/test_torch_stem.py); the incremental modes too
+    (tests/test_torch_incremental.py)."""
     ld = layers_dict(DSL)
     tp = params_from_jax(_params(ld, rng), "cpu")
     dense = tnet.EventNetwork(ld, H, W, 1e-3, padding="SAME", conv_mode="dense")
     assert not dense.is_all_full
     st = dense.init_state(tp, "cpu")
     assert tuple(st[1].featuremap.shape) == dense.event_layers[1].spec.out_shape
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tnet.EventNetwork(ld, H, W, 1e-3, conv_mode="full", activation_dtype="bfloat16")
+    bf16 = tnet.EventNetwork(ld, H, W, 1e-3, conv_mode="full", activation_dtype="bfloat16")
+    assert bf16.event_layers[1].spec.act_dtype == "bfloat16"
     with pytest.raises(ValueError, match="activation_dtype"):
         tnet.EventNetwork(ld, H, W, 1e-3, conv_mode="full", activation_dtype="float16")
-    with pytest.raises(NotImplementedError, match="stem"):
-        tnet.EventNetwork(ld, H, W, 1e-3, conv_mode="full", stem_fusion=True)
+    fused = tnet.EventNetwork(ld, H, W, 1e-3, padding="SAME", conv_mode="full",
+                              stem_fusion=True)
+    assert fused._s2d_pairs == frozenset({0}) and fused._fusion_active()
     net = tnet.EventNetwork(ld, H, W, 1e-3, padding="SAME", conv_mode="full")
     assert net.with_stem_fusion(False)._stem_fusion is False
-    with pytest.raises(NotImplementedError, match="stem"):
-        net.with_stem_fusion(True)
+    assert net.with_stem_fusion(True)._fusion_active()
     with pytest.raises(ValueError, match="stem_fusion"):
         net.with_stem_fusion(1)
     tc, _ = _chunks(rng, 2, 4)

@@ -102,17 +102,21 @@ def test_maxpool_dense_exact(rng, ksize, stride):
 
 def test_matmul_tier_turns_tf32_off():
     """'highest' is IEEE float32 in cuDNN and cuBLAS: both TF32 flags off
-    (cuDNN's default is on).  The other tiers wait for an H100 drift run."""
+    (cuDNN's default is on).  'high' is IEEE float32 too; 'default' turns
+    TF32 on in both (tests/test_torch_tiers.py has the rest)."""
     torch.backends.cudnn.allow_tf32 = True
     try:
         tconv.set_matmul_precision("highest")
         assert torch.backends.cudnn.allow_tf32 is False
         assert torch.backends.cuda.matmul.allow_tf32 is False
         assert tconv.matmul_precision() == "highest"
-        for tier in ("high", "default"):
-            with pytest.raises(NotImplementedError, match="highest"):
-                tconv.set_matmul_precision(tier)
-        assert tconv.matmul_precision() == "highest"
+        for tier, tf32 in (("high", False), ("default", True)):
+            tconv.set_matmul_precision(tier)
+            assert tconv.matmul_precision() == tier
+            assert torch.backends.cudnn.allow_tf32 is tf32
+            assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        tconv.set_matmul_precision("highest")
+        assert torch.backends.cudnn.allow_tf32 is False
         with pytest.raises(ValueError, match="one of"):
             tconv.set_matmul_precision("fast")
     finally:
