@@ -1,43 +1,29 @@
-// Rulebook gather-GEMM kernels for Hopper (sm_90a): the 'sparse_pallas'
-// conv mode's update of the active output sites, and the conv of whole
-// active output rows.
+// Per-site rulebook gather-GEMM for Hopper (sm_90a): the 'sparse_pallas'
+// conv mode's update of single active output sites at any stride (K4).
 //
-// The three kernels compute, for a list of output sites of a conv over the
+// rulebook_gather_gemm (K4) replaces async_ev_cnn_tpu/ops/pallas_rulebook.py
+// ::rulebook_gather_gemm_pallas (_kernel).  For a list of output sites
+// (ys, xs) with receptive-field corner (ys * stride, xs * stride) in the
 // padded HWC featuremap and conv-actfn planes,
 //
 //     out_fm[site, o] = bias[o] + sum_{dy, dx, c} fm[y + dy, x + dx, c] * W[dy, dx, c, o]
 //     out_ca[site, o] =           sum_{dy, dx, c} ca[y + dy, x + dx, c] * W[dy, dx, c, o]
 //
-// with (y, x) the site's receptive-field corner in the padded plane.  A
-// site whose receptive field runs past the plane reads zeros there: the
-// bounds check takes the place of the JAX package's padded copy.
+// A site whose receptive field runs past the plane reads zeros there: the
+// bounds check takes the place of the JAX package's padded copy.  (K3 and
+// K5, the stride-1 block and row maps, run the tiled gather-GEMM of
+// csrc/gather_gemm.cu.)
 //
-//   * rulebook_gather_gemm_blocks (K3) replaces async_ev_cnn_tpu/ops/
-//     pallas_rulebook_blocks.py::rulebook_gather_gemm_pallas_blocks
-//     (_kernel): the sites come as x-aligned 1x8 blocks (by, bx), stride 1,
-//     and one gathered [kh, 8 + kw - 1, C] strip feeds the 8 sites of a
-//     block.
-//   * rulebook_gather_gemm (K4) replaces async_ev_cnn_tpu/ops/
-//     pallas_rulebook.py::rulebook_gather_gemm_pallas (_kernel): one site per entry (ys, xs)
-//     with corner (ys * stride, xs * stride), any stride.
-//   * rows_gather_conv (K5) replaces async_ev_cnn_tpu/ops/pallas_rows.py::
-//     rows_gather_conv_pallas (_kernel): whole output rows, stride 1; row
-//     r is cut into x_tiles strips of 32 sites, box b = r * x_tiles + t
-//     at corner (rows[r], 32 * t).  Strip sites past the row's end are
-//     computed from zeros and dropped by the wrapper.
-//
-// One template serves all three, with BW = 8 sites per gathered box (K3),
-// 1 (K4) or 32 (K5), and SPT sites per thread.  A block owns kWarps * SPT
-// output sites (2 strips or 16 boxes at SPT = 4; one 32-site strip at
-// SPT = 8) and kOTile = 32 output channels, one per lane, so the weight
-// reads W[dy, dx, c, o] are coalesced across a warp; each of the 4 warps
-// owns SPT sites, and each thread keeps SPT sites x 2 planes of sums in
-// registers.  The boxes of both planes and the block's [kh, kw, c_chunk,
-// 32] weight tile are staged in shared memory c_chunk channels at a time
-// (the wrapper sizes c_chunk to keep the stage under 40 KB, so conv7's
-// C = 512 fits), every thread loading its share with coalesced reads, so
-// the products read shared memory only: all lanes of a warp read the same staged input value
-// (a broadcast) and 32 consecutive weights (no bank conflict).
+// A block owns kWarps * SPT = 16 output sites (BW = 1 site a box) and
+// kOTile = 32 output channels, one per lane, so the weight reads W[dy, dx,
+// c, o] are coalesced across a warp; each of the 4 warps owns SPT sites,
+// and each thread keeps SPT sites x 2 planes of sums in registers.  The
+// boxes of both planes and the block's [kh, kw, c_chunk, 32] weight tile
+// are staged in shared memory c_chunk channels at a time (the wrapper sizes
+// c_chunk to keep the stage under 40 KB), every thread loading its share
+// with coalesced reads, so the products read shared memory only: all lanes
+// of a warp read the same staged input value (a broadcast) and 32
+// consecutive weights (no bank conflict).
 //
 // Precision: the products run on the FP32 pipe as explicit fmaf (FFMA; the
 // file is built with --fmad=false, which leaves explicit fmaf calls
@@ -46,25 +32,17 @@
 // 'default' tier (tf32 = 1) both operands are rounded to TF32 with
 // cvt.rna.tf32.f32 as they are staged, as the tier's library convs round
 // them, and summed in float32: a TF32 x TF32 product is exact in float32,
-// so only the summation order differs from the plain version.  No snap
-// fence lies inside: the sums run in another order than the JAX
-// package's, within 1e-5 relative (chip_smoke.py and the tests state the
-// tolerance).
+// so only the summation order differs from the plain version, within 1e-5
+// relative (chip_smoke.py and the tests state the tolerance).
 //
-// Bound: at the eFCN's shapes these kernels move little: the gathered
-// boxes (K sites x kh x (8 + kw - 1) / 8 x C floats a plane) plus the
-// weights, up to 1.18 MB at conv5, against 2 * 2 * K * 8 * kh * kw * C * O
-// flops (K5: whole rows, R x kh x Wp x C floats a plane); both bounds are
-// a few microseconds or less.  This simple design is far from them at the
-// deep layers (conv4..conv7: few sites, a long kh * kw * C reduction):
-// each thread runs its reduction serially and too few blocks fill the
-// card; tiling K5's rows by 32 columns gives the wide early layers enough
-// blocks.  Splitting the reduction, wgmma (3xTF32 at the 'highest' tier),
-// TMA gathers and a fused scatter are later work.
+// Bound: at the eFCN's shapes K4 moves little (the gathered boxes plus the
+// weights) against 2 * 2 * K * kh * kw * C * O flops; both bounds are a few
+// microseconds or less.  This simple design is far from them: each thread
+// runs its kh * kw * C reduction serially and few blocks fill the card.
+// The tiled, split-reduction design of csrc/gather_gemm.cu is the way on.
 //
 // Built by async_ev_cnn_torch/ops/cuda_build.py; bound with ctypes by
-// async_ev_cnn_torch/ops/rulebook_gemm.py (K3, K4) and
-// async_ev_cnn_torch/ops/rows_gemm.py (K5).
+// async_ev_cnn_torch/ops/rulebook_gemm.py.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,11 +66,7 @@ rulebook_kernel(const float* __restrict__ fm, const float* __restrict__ ca,
                 const int32_t* __restrict__ ys, const int32_t* __restrict__ xs,
                 float* __restrict__ out_fm, float* __restrict__ out_ca,
                 int k_len, int hp, int wp, int c_len, int o_len, int kh, int kw,
-                int stride_arg, int x_tiles, int c_chunk) {
-  // K5 runs at stride 1: a constant lets the compiler fold its staging
-  // and site index arithmetic.  K3 (stride 1 too) keeps the runtime value:
-  // folded, its build spilled and ran slower on the H100 (chip_smoke.py).
-  const int stride = BW == 32 ? 1 : stride_arg;
+                int stride, int c_chunk) {
   constexpr int kBoxes = kWarps * SPT / BW;  // gathered boxes per block
   extern __shared__ float smem[];
   __shared__ int y0s[kBoxes];
@@ -114,11 +88,9 @@ rulebook_kernel(const float* __restrict__ fm, const float* __restrict__ ca,
   if (threadIdx.x < kBoxes) {
     const int b = box0 + threadIdx.x;
     const bool live = b < k_len;
-    // K3: by in sites, bx in strips of BW sites (stride 1, x_tiles 1);
-    // K4: the site's corner is (ys * stride, xs * stride) (x_tiles 1);
-    // K5: no xs, box b is strip b % x_tiles of row ys[b / x_tiles]
-    y0s[threadIdx.x] = live ? ys[b / x_tiles] * stride : 0;
-    x0s[threadIdx.x] = live ? (xs != nullptr ? xs[b] : b % x_tiles) * BW * stride : 0;
+    // the box's corner is (ys * stride, xs * BW * stride)
+    y0s[threadIdx.x] = live ? ys[b] * stride : 0;
+    x0s[threadIdx.x] = live ? xs[b] * BW * stride : 0;
     live_box[threadIdx.x] = live;
   }
 
@@ -214,7 +186,7 @@ template <int BW, int SPT>
 int launch(const float* fm, const float* ca, const float* w, const float* bias,
            const int32_t* ys, const int32_t* xs, float* out_fm, float* out_ca,
            int k_len, int hp, int wp, int c_len, int o_len, int kh, int kw,
-           int stride, int x_tiles, int c_chunk, int tf32, cudaStream_t stream) {
+           int stride, int c_chunk, int tf32, cudaStream_t stream) {
   constexpr int kBoxes = kWarps * SPT / BW;
   const int box_w = (BW - 1) * stride + kw;
   const size_t smem = sizeof(float) * c_chunk *
@@ -224,49 +196,24 @@ int launch(const float* fm, const float* ca, const float* w, const float* bias,
   auto kernel = tf32 ? rulebook_kernel<BW, SPT, true> : rulebook_kernel<BW, SPT, false>;
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       fm, ca, w, bias, ys, xs, out_fm, out_ca, k_len, hp, wp, c_len, o_len, kh,
-      kw, stride, x_tiles, c_chunk);
+      kw, stride, c_chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C interface, bound with ctypes.  Each launches its kernel once and
-// returns cudaGetLastError() (0 = success).  Pointers are device pointers;
-// the stream is the caller's current stream.  fm, ca: f32 [hp, wp, c_len];
-// w: f32 [kh, kw, c_len, o_len]; bias: f32 [o_len]; tf32: 1 rounds both
-// operands to TF32 (the 'default' tier), 0 keeps them.  The caller never
-// passes k_len, c_len or o_len of 0, and sizes c_chunk so the stage fits
-// in 48 KB.
-
-// by, bx: int32 [k_len]; out_fm, out_ca: f32 [k_len, 8, o_len]
-extern "C" int rulebook_gather_gemm_blocks(
-    const float* fm, const float* ca, const float* w, const float* bias,
-    const int32_t* by, const int32_t* bx, float* out_fm, float* out_ca,
-    int k_len, int hp, int wp, int c_len, int o_len, int kh, int kw,
-    int c_chunk, int tf32, cudaStream_t stream) {
-  return launch<8, 4>(fm, ca, w, bias, by, bx, out_fm, out_ca, k_len, hp, wp,
-                      c_len, o_len, kh, kw, 1, 1, c_chunk, tf32, stream);
-}
-
-// ys, xs: int32 [k_len]; out_fm, out_ca: f32 [k_len, o_len]
+// C interface, bound with ctypes.  Launches the kernel once and returns
+// cudaGetLastError() (0 = success).  Pointers are device pointers; the
+// stream is the caller's current stream.  fm, ca: f32 [hp, wp, c_len];
+// w: f32 [kh, kw, c_len, o_len]; bias: f32 [o_len]; ys, xs: int32 [k_len];
+// out_fm, out_ca: f32 [k_len, o_len]; tf32: 1 rounds both operands to TF32
+// (the 'default' tier), 0 keeps them.  The caller never passes k_len, c_len
+// or o_len of 0, and sizes c_chunk so the stage fits in 48 KB.
 extern "C" int rulebook_gather_gemm(
     const float* fm, const float* ca, const float* w, const float* bias,
     const int32_t* ys, const int32_t* xs, float* out_fm, float* out_ca,
     int k_len, int hp, int wp, int c_len, int o_len, int kh, int kw,
     int stride, int c_chunk, int tf32, cudaStream_t stream) {
   return launch<1, 4>(fm, ca, w, bias, ys, xs, out_fm, out_ca, k_len, hp, wp,
-                      c_len, o_len, kh, kw, stride, 1, c_chunk, tf32, stream);
-}
-
-// rows: int32 [r_len] padded rows where each output row's window starts;
-// out_fm, out_ca: f32 [r_len, x_tiles * 32, o_len], x_tiles * 32 >= the
-// output width wp - kw + 1 (the columns past it are dropped by the caller)
-extern "C" int rows_gather_conv(
-    const float* fm, const float* ca, const float* w, const float* bias,
-    const int32_t* rows, float* out_fm, float* out_ca, int r_len, int hp, int wp,
-    int c_len, int o_len, int kh, int kw, int x_tiles, int c_chunk, int tf32,
-    cudaStream_t stream) {
-  return launch<32, 8>(fm, ca, w, bias, rows, nullptr, out_fm, out_ca,
-                       r_len * x_tiles, hp, wp, c_len, o_len, kh, kw, 1, x_tiles,
-                       c_chunk, tf32, stream);
+                      c_len, o_len, kh, kw, stride, c_chunk, tf32, stream);
 }

@@ -5,10 +5,11 @@ signature: padded HWC ``[Hp, Wp, C]`` featuremap and conv-actfn planes, an
 HWIO ``[kh, kw, C, O]`` kernel, a ``[O]`` bias (added to the featuremap
 plane only) and int32 ``[R]`` active output rows (stride 1) ->
 ``(fm_rows, ca_rows)``, f32 ``[R, ow, O]`` each, ``ow = Wp - kw + 1``.
-The hand-written kernel is K3's template in ``csrc/rulebook.cu`` at 32-site
-strips: each row is cut into strips of 32 columns, and the columns of the
-last strip past ``ow`` are dropped.  The plain version is the tap loop of
-the TPU kernel.  Both read the matmul tier as K3 does
+The hand-written kernel is K3's tiled gather-GEMM in
+``csrc/gather_gemm.cu`` with the row map: site ``(r, x)``, ``x < ow``, has
+its corner at ``(row_idx[r], x)``, so it computes exactly the ``R * ow``
+output sites.  The plain version is the tap loop of the TPU kernel.  Both
+read the matmul tier as K3 does
 (:mod:`async_ev_cnn_torch.ops.rulebook_gemm`).
 
 As in the JAX package, no conv mode runs it: 'sparse_rows' keeps its
@@ -22,24 +23,16 @@ for tensors on the CPU and the kernel for tensors on the card, or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from async_ev_cnn_torch.ops import cuda_build
-from async_ev_cnn_torch.ops.conv import tier_uses_tf32
 from async_ev_cnn_torch.ops.cuda_build import check as _check
 from async_ev_cnn_torch.ops.cuda_build import on_cpu as _on_cpu
-from async_ev_cnn_torch.ops.cuda_build import ptr as _ptr
 from async_ev_cnn_torch.ops.rulebook import active_rows
-from async_ev_cnn_torch.ops.rulebook_gemm import _channel_chunk, _gather_boxes, _taps_gemm
+from async_ev_cnn_torch.ops.rulebook_gemm import _gather_boxes, _taps_gemm, launch_gather_gemm
 
 #: kernel launches since the counts were last reset
 LAUNCHES = {"rows_gather_conv": 0}
-
-# output columns of one strip, one block a strip (csrc/rulebook.cu)
-_X_TILE = 32
 
 
 def reset_launches() -> None:
@@ -72,8 +65,7 @@ def rows_gather_conv(fm_hwc, ca_hwc, kernel_hwio, bias, row_idx):
       row_idx: int32 ``[R]`` output rows; row ``r`` reads padded rows
         ``row_idx[r] .. row_idx[r] + kh - 1`` (zeros outside the plane).
 
-    Returns ``(fm_rows, ca_rows)``, f32 ``[R, Wp - kw + 1, O]`` each (on
-    the card, column slices of the kernel's whole strips).
+    Returns ``(fm_rows, ca_rows)``, f32 ``[R, Wp - kw + 1, O]`` each.
     """
     if _on_cpu(fm_hwc, ca_hwc, kernel_hwio, bias, row_idx):
         return rows_gather_conv_plain(fm_hwc, ca_hwc, kernel_hwio, bias, row_idx)
@@ -83,29 +75,22 @@ def rows_gather_conv(fm_hwc, ca_hwc, kernel_hwio, bias, row_idx):
     _check("kernel_hwio", kernel_hwio, torch.float32, dev, 4)
     _check("bias", bias, torch.float32, dev, 1)
     _check("row_idx", row_idx, torch.int32, dev, 1)
-    kh, kw, c, o = kernel_hwio.shape
-    hp, wp, _ = fm_hwc.shape
+    _, kw, c, o = kernel_hwio.shape
+    wp = fm_hwc.shape[1]
     if ca_hwc.shape != fm_hwc.shape or fm_hwc.shape[2] != c or bias.shape[0] != o:
         raise ValueError(
             f"shape mismatch: fm {tuple(fm_hwc.shape)}, ca {tuple(ca_hwc.shape)}, "
             f"kernel {tuple(kernel_hwio.shape)}, bias {tuple(bias.shape)}")
     if wp < kw:
         raise ValueError(f"plane width {wp} is narrower than the kernel's {kw}")
-    r = row_idx.shape[0]
     ow = wp - kw + 1
-    x_tiles = -(-ow // _X_TILE)
-    out_fm = torch.empty((r, x_tiles * _X_TILE, o), dtype=torch.float32, device=dev)
+    out_fm = torch.empty((row_idx.shape[0], ow, o), dtype=torch.float32, device=dev)
     out_ca = torch.empty_like(out_fm)
     if out_fm.numel() == 0:  # nothing to compute: no launch, nothing counted
-        return out_fm[:, :ow], out_ca[:, :ow]
-    chunk = _channel_chunk(1, kh, kw, _X_TILE + kw - 1, c)
-    cuda_build.launch(
-        "rulebook", "rows_gather_conv", dev, _ptr(fm_hwc), _ptr(ca_hwc),
-        _ptr(kernel_hwio), _ptr(bias), _ptr(row_idx), _ptr(out_fm), _ptr(out_ca),
-        *(ctypes.c_int(v) for v in (r, hp, wp, c, o, kh, kw, x_tiles, chunk,
-                                    tier_uses_tf32())))
+        return out_fm, out_ca
+    launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, row_idx, None, out_fm, out_ca, ow)
     LAUNCHES["rows_gather_conv"] += 1
-    return out_fm[:, :ow], out_ca[:, :ow]
+    return out_fm, out_ca
 
 
 def kernel_rows_conv_pair(featuremap, conv_actfn, active, kernel, bias,

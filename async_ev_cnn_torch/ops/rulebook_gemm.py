@@ -2,8 +2,8 @@
 
 Counterpart of ``async_ev_cnn_tpu/ops/pallas_rulebook_blocks.py`` and
 ``async_ev_cnn_tpu/ops/pallas_rulebook.py``.  Two functions, each with a
-hand-written CUDA kernel (``csrc/rulebook.cu``) and a plain PyTorch version
-of the same arithmetic; both take the JAX signatures' layouts: padded HWC
+hand-written CUDA kernel and a plain PyTorch version of the same
+arithmetic; both take the JAX signatures' layouts: padded HWC
 ``[Hp, Wp, C]`` featuremap and conv-actfn planes, an HWIO ``[kh, kw, C, O]``
 kernel, a ``[O]`` bias (added to the featuremap plane only) and int32
 ``[K]`` coordinates.
@@ -17,6 +17,12 @@ kernel, a ``[O]`` bias (added to the featuremap plane only) and int32
 * :func:`rulebook_gather_gemm` (K4, JAX ``rulebook_gather_gemm_pallas``):
   per site ``(ys, xs)`` the ``[kh, kw, C]`` box at ``(ys*s, xs*s)`` ->
   ``[K, O]`` per plane.
+
+K3 runs the tiled, split-reduction gather-GEMM of ``csrc/gather_gemm.cu``,
+which K5 (:mod:`async_ev_cnn_torch.ops.rows_gemm`) shares; both launch it
+through :func:`launch_gather_gemm` with the launch plan of
+:func:`gather_gemm_plan`.  K4 runs ``rulebook_kernel`` of
+``csrc/rulebook.cu``.
 
 Both read the matmul tier (:mod:`async_ev_cnn_torch.ops.conv`): at
 ``'default'`` on the card the kernels and their plain versions round both
@@ -32,6 +38,7 @@ never falls back.  ``LAUNCHES`` counts kernel launches per function.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -46,12 +53,23 @@ BLOCK_W = 8
 #: kernel launches per wrapper since the counts were last reset
 LAUNCHES = {"rulebook_gather_gemm_blocks": 0, "rulebook_gather_gemm": 0}
 
-# the kernels' block shape (csrc/rulebook.cu): 16 output sites by 32
-# output channels a block, the inputs and weights staged in shared memory a
-# chunk of channels at a time under this budget
+# K4's block shape (csrc/rulebook.cu): 16 output sites by 32 output
+# channels a block, the inputs and weights staged in shared memory a chunk
+# of channels at a time under this budget
 _SITES_PER_BLOCK = 16
 _O_TILE = 32
 _STAGE_BYTES = 40 * 1024
+
+# the gather-GEMM's instances (csrc/gather_gemm.cu): output sites a block
+# (both planes: twice as many GEMM rows), output channels a block, reduction
+# depth a slice, threads a block
+GATHER_GEMM_TILES = {"narrow": (64, 16, 16, 128), "wide": (32, 64, 32, 256)}
+#: blocks the plan fills with splits and does not pass: about two per SM of
+#: the H100's 132 (a split more adds partial sums to write and add, and on
+#: the eFCN's conv2 lost 14% on the H100: chip_smoke.py times S + 1)
+GATHER_GEMM_TARGET_BLOCKS = 2 * 132
+#: most reduction splits of one call
+GATHER_GEMM_MAX_SPLITS = 32
 
 
 def reset_launches() -> None:
@@ -120,13 +138,84 @@ def rulebook_gather_gemm_plain(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs,
     )
 
 
-def _channel_chunk(boxes: int, kh: int, kw: int, box_w: int, c: int) -> int:
-    """Channels staged per pass so both planes' boxes and the weight tile
-    fit the budget."""
-    per_channel = 4 * (2 * boxes * kh * box_w + kh * kw * _O_TILE)
+class GatherGemmPlan(NamedTuple):
+    """How one gather-GEMM call is cut: ``tile`` names the instance
+    (``'narrow'`` for O <= 16, else ``'wide'``; its shape is
+    ``GATHER_GEMM_TILES[tile]``), the reduction in ``n_slices`` slices
+    ``block_k`` deep, ``splits`` reduction splits over ``grid = (site
+    tiles, channel tiles, splits)``, the ``[splits, 2, M, O]`` partial sums
+    (None at one split) and the dynamic shared memory of a block's
+    two-stage ring.  Split ``z`` takes slices ``[z * n_slices // splits,
+    (z + 1) * n_slices // splits)``."""
+    tile: str
+    block_k: int
+    n_slices: int
+    splits: int
+    grid: tuple[int, int, int]
+    workspace: tuple[int, int, int, int] | None
+    smem_bytes: int
+
+
+def gather_gemm_plan(m: int, o: int, kh: int, kw: int, c: int,
+                     splits: int | None = None) -> GatherGemmPlan:
+    """The launch plan of a gather-GEMM over ``m`` output sites, ``o``
+    output channels and a ``kh x kw x c`` reduction.  Where the site x
+    channel tiles give fewer than :data:`GATHER_GEMM_TARGET_BLOCKS` blocks,
+    the reduction's slices are split over the grid's third axis, as many
+    splits as keep the grid within that count, at most one split a slice
+    and :data:`GATHER_GEMM_MAX_SPLITS`.  ``splits``
+    overrides that choice (clamped to one split a slice at most), for
+    timing one split count against another."""
+    tile = "narrow" if o <= 16 else "wide"
+    sites, block_n, block_k, _ = GATHER_GEMM_TILES[tile]
+    n_slices = max(1, -(-kh * kw * c // block_k))
+    tiles = (-(-m // sites), -(-o // block_n))
+    n_tiles = tiles[0] * tiles[1]
+    if splits is not None:
+        splits = max(1, min(splits, n_slices))
+    elif n_tiles < GATHER_GEMM_TARGET_BLOCKS:
+        splits = min(GATHER_GEMM_TARGET_BLOCKS // n_tiles, n_slices,
+                     GATHER_GEMM_MAX_SPLITS)
+    else:
+        splits = 1
+    smem = 4 * 2 * (2 * sites * (block_k + 4) + block_k * block_n)
+    return GatherGemmPlan(tile, block_k, n_slices, splits, (*tiles, splits),
+                          (splits, 2, m, o) if splits > 1 else None, smem)
+
+
+def launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs, out_fm, out_ca,
+                       ow: int = 0, splits: int | None = None) -> None:
+    """Launch ``csrc/gather_gemm.cu`` once (and its split pass) on the
+    card: K3's block map when ``xs`` is given, K5's row map (``ow``
+    columns a row) otherwise.  ``out_fm``/``out_ca`` are ``[M, O]``
+    contiguous; ``splits`` overrides the plan's (see
+    :func:`gather_gemm_plan`).  The caller counts the launch."""
+    kh, kw, c, o = kernel_hwio.shape
+    hp, wp, _ = fm_hwc.shape
+    m = out_fm.numel() // o
+    if fm_hwc.numel() >= 2**31 or out_fm.numel() * 2 >= 2**31:
+        raise ValueError("the gather-GEMM indexes its planes and outputs with int32")
+    plan = gather_gemm_plan(m, o, kh, kw, c, splits)
+    partial = (torch.empty(plan.workspace, dtype=torch.float32, device=out_fm.device)
+               if plan.workspace else out_fm)
+    a_vec = c % 4 == 0 and fm_hwc.data_ptr() % 16 == 0 and ca_hwc.data_ptr() % 16 == 0
+    w_vec = o % 4 == 0 and kernel_hwio.data_ptr() % 16 == 0
+    cuda_build.launch(
+        "gather_gemm", "gather_gemm", out_fm.device, _ptr(fm_hwc), _ptr(ca_hwc),
+        _ptr(kernel_hwio), _ptr(bias), _ptr(ys), _ptr(ys if xs is None else xs),
+        _ptr(out_fm), _ptr(out_ca), _ptr(partial),
+        *(ctypes.c_int(int(v)) for v in (
+            m, hp, wp, c, o, kh, kw, ow, xs is None, plan.tile == "wide", plan.grid[0],
+            plan.grid[1], plan.splits, plan.smem_bytes, a_vec, w_vec, tier_uses_tf32())))
+
+
+def _channel_chunk(kh: int, kw: int, c: int) -> int:
+    """K4's channels staged per pass so both planes' boxes and the weight
+    tile fit the budget."""
+    per_channel = 4 * (2 * _SITES_PER_BLOCK + _O_TILE) * kh * kw
     if per_channel > _STAGE_BYTES:
         raise ValueError(
-            f"a {kh}x{box_w} receptive field does not fit the kernels' shared "
+            f"a {kh}x{kw} receptive field does not fit the kernel's shared "
             "memory stage")
     return min(c, _STAGE_BYTES // per_channel)
 
@@ -147,11 +236,6 @@ def _check_inputs(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs):
             f"kernel {tuple(kernel_hwio.shape)}, bias {tuple(bias.shape)}, "
             f"coordinates {tuple(ys.shape)} and {tuple(xs.shape)}")
     return dev, kh, kw, c, o
-
-
-def _launch(fn_name: str, device, *args) -> None:
-    cuda_build.launch("rulebook", fn_name, device, *args)
-    LAUNCHES[fn_name] += 1
 
 
 def rulebook_gather_gemm_blocks(fm_hwc, ca_hwc, kernel_hwio, bias, by, bx,
@@ -178,12 +262,8 @@ def rulebook_gather_gemm_blocks(fm_hwc, ca_hwc, kernel_hwio, bias, by, bx,
     out_ca = torch.empty_like(out_fm)
     if out_fm.numel() == 0:
         return out_fm, out_ca  # nothing to compute: no launch, nothing counted
-    hp, wp, _ = fm_hwc.shape
-    chunk = _channel_chunk(_SITES_PER_BLOCK // BLOCK_W, kh, kw, BLOCK_W + kw - 1, c)
-    _launch("rulebook_gather_gemm_blocks", dev, _ptr(fm_hwc), _ptr(ca_hwc),
-            _ptr(kernel_hwio), _ptr(bias), _ptr(by), _ptr(bx), _ptr(out_fm), _ptr(out_ca),
-            *(ctypes.c_int(v) for v in (k, hp, wp, c, o, kh, kw, chunk,
-                                        tier_uses_tf32())))
+    launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, by, bx, out_fm, out_ca)
+    LAUNCHES["rulebook_gather_gemm_blocks"] += 1
     return out_fm, out_ca
 
 
@@ -209,9 +289,11 @@ def rulebook_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs,
     if out_fm.numel() == 0:
         return out_fm, out_ca  # nothing to compute: no launch, nothing counted
     hp, wp, _ = fm_hwc.shape
-    chunk = _channel_chunk(_SITES_PER_BLOCK, kh, kw, kw, c)
-    _launch("rulebook_gather_gemm", dev, _ptr(fm_hwc), _ptr(ca_hwc),
-            _ptr(kernel_hwio), _ptr(bias), _ptr(ys), _ptr(xs), _ptr(out_fm), _ptr(out_ca),
-            *(ctypes.c_int(v) for v in (k, hp, wp, c, o, kh, kw, stride, chunk,
-                                        tier_uses_tf32())))
+    chunk = _channel_chunk(kh, kw, c)
+    cuda_build.launch(
+        "rulebook", "rulebook_gather_gemm", dev, _ptr(fm_hwc), _ptr(ca_hwc),
+        _ptr(kernel_hwio), _ptr(bias), _ptr(ys), _ptr(xs), _ptr(out_fm), _ptr(out_ca),
+        *(ctypes.c_int(v) for v in (k, hp, wp, c, o, kh, kw, stride, chunk,
+                                    tier_uses_tf32())))
+    LAUNCHES["rulebook_gather_gemm"] += 1
     return out_fm, out_ca

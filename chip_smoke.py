@@ -9,7 +9,8 @@ Phases, one line each on standard output:
 
 1. environment: the card, its power limit, torch/CUDA versions, TF32 off;
 2. build: every kernel source of async_ev_cnn_torch/csrc with nvcc, one
-   nvcc per source, all started together;
+   nvcc per source, all started together, with ptxas's registers and
+   spills of each;
 3. kernels: each kernel against its plain PyTorch version bit for bit at
    the eFCN's full width (160x224, T=200 chunks of 256 events), against
    each other, on a 2-channel ragged case, on a large-dt case, and against
@@ -30,13 +31,18 @@ Then the incremental (sequential) engine, the eFCN in conv_mode
 'sparse_pallas' on a clustered stream (events around a drifting centre,
 radius 8, ts gaps 1..14 us, the JAX benchmark's clustered_stream):
 
-7. rulebook kernels: K3 (rulebook_gather_gemm_blocks) at every conv layer's
-   shapes, its 1x8 blocks taken from that layer's real active mask at its
-   block capacity, and K4 (rulebook_gather_gemm) at stride 2 on conv2's
-   shapes, each against its plain version within 1e-5 * (1 + max |plain|)
-   (float32 sums of up to 9 * 512 terms in another order); with median
-   times, the plain versions' times, the memory/FFMA bound and the time of
-   the layer's dense [2, C, H, W] conv pair (the crossover reference);
+7. rulebook kernels: first the gather-GEMM that K3 and K5 share
+   (csrc/gather_gemm.cu) at its edges (O = 110, C = 1, ow = 7, right-edge
+   blocks, uneven reduction splits, planes off 16-byte alignment) at
+   'highest' and 'default'; then K3 (rulebook_gather_gemm_blocks) at every
+   conv layer's shapes, its 1x8 blocks taken from that layer's real active
+   mask at its block capacity, and K4 (rulebook_gather_gemm) at stride 2 on
+   conv2's shapes, each against its plain version within 1e-5 * (1 + max
+   |plain|) (float32 sums of up to 9 * 512 terms in another order) and bit
+   for bit against a second launch; with K3's launch plan (tile, splits,
+   grid), median times, the plain versions' times, the memory/FFMA bound
+   and the time of the layer's dense [2, C, H, W] conv pair (the crossover
+   reference);
 8. path: YoloEventTorch.scan over 64 chunks of 256 events (the sequential
    engine, not all layers 'full'), the counts set to 0 just before and
    read just after: events/s, ms/chunk, and per conv layer the K3
@@ -61,10 +67,13 @@ paths, and the precision options:
 13. K5 (rows_gather_conv): at every conv layer's shapes, its active rows
     taken from that layer's real mask of the clustered stream at its
     row_capacity, against its plain version within 1e-5 * (1 + max
-    |plain|), with its device time, the plain version's, the bound and
-    the device time of rows_conv_pair's own conv over the gathered row
-    stack; then its path, the 'sparse_rows' update of one chunk through
-    K5 (kernel_rows_conv_pair) at every layer, within the same tolerance
+    |plain|) and bit for bit against a second launch, with its launch plan,
+    its device time, its split pass's share, its device time with the
+    reduction unsplit (S = 1) and with one split more than the plan's, the
+    plain version's time, the bound and the device time of
+    rows_conv_pair's own conv over the gathered row stack; then its path,
+    the 'sparse_rows' update of one chunk through K5
+    (kernel_rows_conv_pair) at every layer, within the same tolerance
     of rows_conv_pair (counts set to 0 just before, read just after); and
     K3 and K5 against their plain versions at the 'default' tier (TF32
     operands), same tolerance;
@@ -88,12 +97,15 @@ paths, and the precision options:
 
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's and K2's ``ms`` are CUDA-event times over many calls;
-K3's and K4's ``ms`` are their kernels' device time per call from
-torch.profiler (``call_ms`` beside it is the event-timed wall time of a
-wrapper call, which the host's launch overhead sets at these sizes), and
-``dense_pair_ms`` the device time of the dense conv pair.  K3's times and
-bound are the sums over its seven layer calls of one chunk.  Any failure raises and exits non-zero without a result line;
-without a CUDA device, or without the package beside it, it exits non-zero.
+K3's, K4's and K5's ``ms`` are their kernels' device time per call from
+torch.profiler (K3's and K5's: the gather-GEMM kernel plus, where the plan
+splits the reduction, its split pass; ``call_ms`` beside it is the
+event-timed wall time of a wrapper call, which the host's launch overhead
+sets at these sizes), and ``dense_pair_ms`` the device time of the dense
+conv pair.  K3's and K5's times and bounds are the sums over their seven
+layer calls of one chunk.  Any failure raises and exits non-zero without a
+result line; without a CUDA device, or without the package beside it, it
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -123,6 +135,19 @@ SEQ_CHUNKS = 64
 WARM_CHUNKS = 8
 CAPACITY_FRAC = 0.25
 KERNEL_REL_TOL = 1e-5
+# the kernels of one K3 or K5 call (csrc/gather_gemm.cu): the gather-GEMM
+# and, where its plan splits the reduction, the split pass
+GG_KERNELS = ("gather_gemm_kernel", "split_sum_kernel")
+# the gather-GEMM's edge shapes: (what, hp, wp, C, O, kh, kw, float offset
+# of the planes from a 16-byte boundary)
+GG_EDGES = (
+    ("O=110 ow=7", 5, 7, 24, 110, 1, 1, 0),
+    ("C=1 O=16 ow=7", 8, 9, 1, 16, 3, 3, 0),
+    ("C=1 O=16 wide", 10, 42, 1, 16, 3, 3, 0),
+    ("C=3 O=70 ow=7", 7, 9, 3, 70, 3, 3, 0),
+    ("uneven splits", 5, 9, 200, 300, 3, 3, 0),
+    ("planes off 16 B", 6, 12, 8, 40, 3, 3, 1),
+)
 TIER_GATE_STEPS = 200
 
 
@@ -193,20 +218,23 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, kernel_key=None, iters: int = 20) -> float:
+def device_ms(fn, kernel_keys=None, iters: int = 20, per_call: int = 1) -> float:
     """Device time per call of ``fn`` under torch.profiler: the kernels
-    whose name holds ``kernel_key`` (every kernel when None), summed over
-    ``iters`` calls.  Unlike :func:`time_ms` it leaves out the host's time
-    between launches, which sets a small kernel's wall time.
+    whose name holds one of ``kernel_keys`` (a name or a tuple of names;
+    every kernel when None), summed over ``iters`` calls.  Unlike
+    :func:`time_ms` it leaves out the host's time between launches, which
+    sets a small kernel's wall time.
 
-    A trace must record exactly ``iters`` launches of a named kernel
-    (``fn`` launches it once a call).  A plain trace has lost one kernel
-    record once on the H100 (a trace with a profiler schedule loses them
-    often), so a trace short of ``iters`` is taken again, 3 traces at
-    most."""
+    A trace must record exactly ``iters * per_call`` launches of the named
+    kernels (``fn`` launches ``per_call`` of them a call), and at least one
+    kernel when none is named.  A plain trace has lost kernel records on
+    the H100 (once one launch, once a whole trace; a trace with a profiler
+    schedule loses them often), so a short trace is taken again, 3 traces
+    at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    keys = (kernel_keys,) if isinstance(kernel_keys, str) else kernel_keys
     fn()
     torch.cuda.synchronize()
     counts = []
@@ -216,15 +244,28 @@ def device_ms(fn, kernel_key=None, iters: int = 20) -> float:
                 fn()
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                and (kernel_key is None or kernel_key in e.key)]
+                and (keys is None or any(k in e.key for k in keys))]
         total_ms = sum(e.self_device_time_total for e in hits) / 1e3
-        if kernel_key is None:
-            return total_ms / iters
         counts.append(sum(e.count for e in hits))
-        if counts[-1] == iters:
+        if counts[-1] == iters * per_call or (keys is None and counts[-1] > 0):
             return total_ms / iters
     raise RuntimeError(f"chip_smoke check failed: profiled {counts} launches of "
-                       f"{kernel_key} in 3 traces of {iters} calls")
+                       f"{keys} in 3 traces of {iters} calls x {per_call}")
+
+
+def gg_device_ms(fn, plan) -> float:
+    """Device time per call of a K3 or K5 wrapper: its gather-GEMM kernel
+    and, where the plan splits the reduction, the split pass."""
+    return device_ms(fn, GG_KERNELS, per_call=1 + (plan.splits > 1))
+
+
+def split_pass_ms(fn, plan) -> float:
+    """The split pass's share of :func:`gg_device_ms` (0 without one)."""
+    return device_ms(fn, "split_sum_kernel") if plan is not None and plan.splits > 1 else 0.0
+
+
+def plan_text(plan) -> str:
+    return f"{plan.tile} S={plan.splits} grid {'x'.join(map(str, plan.grid))}"
 
 
 def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
@@ -326,13 +367,59 @@ def box_pixels(rows, cols, hp, wp, kh, box_w, stride=1) -> int:
 
 def kernel_err(fn, plain, args, what: str) -> float:
     """max |kernel - plain| over both planes of a rulebook-style kernel,
-    held to KERNEL_REL_TOL * (1 + max |plain|)."""
-    got, want = fn(*args), plain(*args)
+    held to KERNEL_REL_TOL * (1 + max |plain|); a second launch on the same
+    inputs must give the same bits (no atomics, a fixed summation order)."""
+    got, again, want = fn(*args), fn(*args), plain(*args)
     torch.cuda.synchronize()
+    require(all(bit_equal(g, a) for g, a in zip(got, again)),
+            f"{what}: two launches on the same inputs differ")
     err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
     tol = KERNEL_REL_TOL * (1 + max(float(w_.abs().max()) for w_ in want))
     require(err <= tol, f"{what} differs from its plain version by {err} > {tol}")
     return err
+
+
+def gather_gemm_edges(dev) -> str:
+    """K3 and K5 at the gather-GEMM's edge shapes (GG_EDGES), every block
+    and a repeated last row, against their plain versions and a second
+    launch at 'highest' and 'default' ('highest' is restored whatever
+    happens).  Returns the phase's line."""
+    from async_ev_cnn_torch.ops import rows_gemm as tr
+    from async_ev_cnn_torch.ops import rulebook_gemm as rg
+    from async_ev_cnn_torch.ops.conv import set_matmul_precision
+
+    rng = np.random.RandomState(11)
+    worst, plans = {"K3": 0.0, "K5": 0.0}, []
+    try:
+        for tier in ("highest", "default"):
+            set_matmul_precision(tier)
+            for what, hp, wp, c, o, kh, kw, off in GG_EDGES:
+                buf = torch.from_numpy(rng.randn(2, hp * wp * c + off).astype(np.float32)).to(dev)
+                fm, ca = (buf[i, off:].view(hp, wp, c) for i in (0, 1))
+                w = torch.from_numpy((rng.randn(kh, kw, c, o) * 0.1).astype(np.float32)).to(dev)
+                b = torch.from_numpy(rng.randn(o).astype(np.float32)).to(dev)
+                oh, ow = hp - kh + 1, wp - kw + 1
+                wb = -(-ow // rg.BLOCK_W)
+                by = torch.arange(oh, dtype=torch.int32, device=dev).repeat_interleave(wb)
+                bx = torch.arange(wb, dtype=torch.int32, device=dev).repeat(oh)
+                rows = torch.tensor([oh - 1, 0, oh // 2, oh - 1], dtype=torch.int32, device=dev)
+                for name, fn, plain, args, m in (
+                        ("K3", rg.rulebook_gather_gemm_blocks,
+                         rg.rulebook_gather_gemm_blocks_plain, (fm, ca, w, b, by, bx),
+                         by.numel() * rg.BLOCK_W),
+                        ("K5", tr.rows_gather_conv, tr.rows_gather_conv_plain,
+                         (fm, ca, w, b, rows), rows.numel() * ow)):
+                    worst[name] = max(worst[name], kernel_err(
+                        fn, plain, args, f"{name} at {what} ({tier})"))
+                    if tier == "highest":
+                        plan = rg.gather_gemm_plan(m, o, kh, kw, c)
+                        plans.append(f"{name} {what}: {plan_text(plan)}")
+    finally:
+        set_matmul_precision("highest")
+    return (f"gather-gemm-edges: K3 and K5 == plain within {KERNEL_REL_TOL} * (1 + max|plain|) "
+            f"and bit-equal across two launches at 'highest' and 'default' at "
+            f"{len(GG_EDGES)} edge shapes; max abs err K3 {worst['K3']:.2e}, K5 "
+            f"{worst['K5']:.2e}; plans: " + "; ".join(plans))
 
 
 def rulebook_case(name, spec, kernel, bias, prev_io, dev):
@@ -359,6 +446,7 @@ def rulebook_case(name, spec, kernel, bias, prev_io, dev):
                                        rg.rulebook_gather_gemm_blocks_plain, {})
         sites_per_box, box_w = rg.BLOCK_W, rg.BLOCK_W + kw - 1
         cols_scale = rg.BLOCK_W
+        plan = rg.gather_gemm_plan(by.numel() * rg.BLOCK_W, o, kh, kw, c)
     else:
         ys, xs, valid = tmasks.mask_to_topk_coords(active, spec.capacity)
         n_active = active.sum()
@@ -366,6 +454,7 @@ def rulebook_case(name, spec, kernel, bias, prev_io, dev):
         kernel_fn, plain_fn = rg.rulebook_gather_gemm, rg.rulebook_gather_gemm_plain
         kwargs = {"stride": spec.stride}
         sites_per_box, box_w, cols_scale = 1, kw, spec.stride
+        plan = None  # K4: rulebook_kernel of csrc/rulebook.cu
     err = kernel_err(partial(kernel_fn, **kwargs), partial(plain_fn, **kwargs), args,
                      f"{name}: {kernel_fn.__name__}")
     # the work this mask needs: the valid boxes' distinct input pixels of
@@ -380,11 +469,16 @@ def rulebook_case(name, spec, kernel, bias, prev_io, dev):
                    + 2 * n_valid * sites_per_box * o)
     n_ops = 2 * 2 * n_valid * sites_per_box * kh * kw * c * o
     pair = torch.stack([prev_io.featuremap, prev_io.conv_actfn]).float()
+
+    def call():
+        return kernel_fn(*args, **kwargs)
+
     return {
         "layer": name, "k": int(args[4].numel()), "valid": n_valid,
         "active": int(n_active), "c": c, "o": o,
-        "err": err,
-        "ms": device_ms(lambda: kernel_fn(*args, **kwargs), "rulebook_kernel"),
+        "err": err, "plan": plan_text(plan) if plan else "rulebook_kernel",
+        "ms": gg_device_ms(call, plan) if plan else device_ms(call, "rulebook_kernel"),
+        "split_ms": split_pass_ms(call, plan),
         "call_ms": time_ms(lambda: kernel_fn(*args, **kwargs), 50),
         "plain_ms": time_ms(lambda: plain_fn(*args, **kwargs), 5),
         "dense_pair_ms": device_ms(lambda: tconv.conv2d_dense(
@@ -436,6 +530,7 @@ def rows_phase(dev, net, params, ios):
         kh, kw = spec.ksize
         o = kernel.shape[0]
         ow = wp - kw + 1
+        plan = rg.gather_gemm_plan(rows.numel() * ow, o, kh, kw, c)
         # the work this mask needs: the valid rows' distinct input rows of
         # both planes, the weights, bias and row list, the valid rows'
         # outputs of both planes; one FFMA (2 flops) a term
@@ -449,10 +544,27 @@ def rows_phase(dev, net, params, ios):
         # stack of both planes' row windows
         take = row_idx[:, None] + torch.arange(kh, device=dev)[None, :]
         stack = torch.cat([fm[take], ca[take]]).permute(0, 3, 1, 2).contiguous()
+
+        def forced(splits):  # the same call at another split count
+            def call():
+                outs = [torch.empty((rows.numel(), ow, o), dtype=torch.float32, device=dev)
+                        for _ in range(2)]
+                rg.launch_gather_gemm(*args_, None, *outs, ow, splits=splits)
+                return outs
+            return call
+
+        # the reduction left whole, and one split more than the plan's
+        other = {s: forced(s) for s in (1, plan.splits + 1) if s <= plan.n_slices}
+        for s, call in other.items():
+            err = max(err, kernel_err(call, lambda: tr.rows_gather_conv_plain(*args_), (),
+                                      f"{ld.name}: K5 at S={s}"))
         cases.append({
             "layer": ld.name, "r": rows.numel(), "valid": n_valid, "c": c, "o": o,
-            "ow": ow, "err": err,
-            "ms": device_ms(lambda: tr.rows_gather_conv(*args_), "rulebook_kernel"),
+            "ow": ow, "err": err, "plan": plan_text(plan),
+            "ms": gg_device_ms(lambda: tr.rows_gather_conv(*args_), plan),
+            "split_ms": split_pass_ms(lambda: tr.rows_gather_conv(*args_), plan),
+            "other_ms": {s: device_ms(call, GG_KERNELS, per_call=1 + (s > 1))
+                         for s, call in other.items()},
             "plain_ms": time_ms(lambda: tr.rows_gather_conv_plain(*args_), 5),
             "library_ms": device_ms(lambda: tconv.conv2d_dense(
                 stack, kernel, None, (1, 1), "VALID")),
@@ -483,7 +595,10 @@ def rows_phase(dev, net, params, ios):
     print("rows-kernel: K5 == plain within "
           f"{KERNEL_REL_TOL} * (1 + max|plain|) at every layer; " + "; ".join(
               f"{r['layer']} R={r['r']} ({r['valid']} valid) C={r['c']} O={r['o']} "
-              f"ow={r['ow']}: device {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
+              f"ow={r['ow']} [{r['plan']}]: device {r['ms']:.4f} ms (split pass "
+              f"{r['split_ms']:.4f}; " + "".join(f"at S={s} {t:.4f}; " for s, t in
+                                                r['other_ms'].items())
+              + f"plain {r['plain_ms']:.3f}, "
               f"rows_conv_pair's conv device {r['library_ms']:.4f}, bound "
               f"{r['bound'][0]:.5f} {r['bound'][1]}), err {r['err']:.2e}" for r in cases)
           + f"; path: the 'sparse_rows' update of one chunk through K5 at "
@@ -494,7 +609,7 @@ def rows_phase(dev, net, params, ios):
     b_bytes = sum(r["bound"][0] for r in cases if r["bound"][1] == "bytes")
     b_ops = sum(r["bound"][0] for r in cases if r["bound"][1] == "operations")
     return {"name": "rows_gather_conv", "route": "cuda",
-            "source": "async_ev_cnn_torch/csrc/rulebook.cu",
+            "source": "async_ev_cnn_torch/csrc/gather_gemm.cu",
             "replaces": "async_ev_cnn_tpu/ops/pallas_rows.py:92",
             "launches": path_launches, "max_abs_err": max(r["err"] for r in cases),
             "ms": sum(r["ms"] for r in cases), "plain_ms": sum(r["plain_ms"] for r in cases),
@@ -531,7 +646,8 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
     chunks = pack_chunks(stream, CAPACITY, device=dev)
     warm, run = part(chunks, 0, WARM_CHUNKS), part(chunks, WARM_CHUNKS, None)
 
-    # ---- 7. rulebook kernels at every conv layer's shapes -------------------
+    # ---- 7. rulebook kernels at their edges and every conv layer's shapes -----
+    print(gather_gemm_edges(dev), flush=True)
     state = sp.init_state()
     for i in range(WARM_CHUNKS):
         state, ios = net.forward(params, state, EventChunk(*(f[i] for f in warm)))
@@ -545,11 +661,12 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
     k4 = rulebook_case("conv2/stride2", k4_spec, params["w_conv2"], params["b_conv2"],
                        pool1_io, dev)
     print("rulebook-kernels: K3 == plain and K4 == plain within "
-          f"{KERNEL_REL_TOL} * (1 + max|plain|) at chunk {WARM_CHUNKS} of the clustered "
-          "stream; " + "; ".join(
+          f"{KERNEL_REL_TOL} * (1 + max|plain|), and bit-equal across two launches, at "
+          f"chunk {WARM_CHUNKS} of the clustered stream; " + "; ".join(
               f"{r['layer']} K={r['k']} ({r['valid']} valid of {r['active']} active) "
-              f"C={r['c']} O={r['o']}: "
-              f"device {r['ms']:.4f} ms (a call {r['call_ms']:.4f}, plain "
+              f"C={r['c']} O={r['o']} [{r['plan']}]: "
+              f"device {r['ms']:.4f} ms (split pass {r['split_ms']:.4f}, a call "
+              f"{r['call_ms']:.4f}, plain "
               f"{r['plain_ms']:.3f}, dense pair device {r['dense_pair_ms']:.4f}, bound "
               f"{r['bound'][0]:.5f} {r['bound'][1]}), "
               f"err {r['err']:.2e}" for r in k3 + [k4]), flush=True)
@@ -672,7 +789,7 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
     parts = [(e.key, e.count, e.self_device_time_total) for e in events
              if e.device_type == DeviceType.CPU]
     parts += [(e.key, e.count, e.self_device_time_total) for e in kernels
-              if "rulebook_kernel" in e.key]
+              if any(k in e.key for k in GG_KERNELS)]
     top = sorted(parts, key=lambda e: -e[2])[:10]
     print(f"seq-syncs: one sequential chunk makes {n_syncs} synchronizing CUDA calls "
           f"(torch.cuda sync debug mode); the conv layers count {n_reads} flag reads",
@@ -689,9 +806,9 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
 
     k3_bytes_ms = sum(r["bound"][0] for r in k3 if r["bound"][1] == "bytes")
     k3_ops_ms = sum(r["bound"][0] for r in k3 if r["bound"][1] == "operations")
-    src = "async_ev_cnn_torch/csrc/rulebook.cu"
     return [
-        {"name": "rulebook_gather_gemm_blocks", "route": "cuda", "source": src,
+        {"name": "rulebook_gather_gemm_blocks", "route": "cuda",
+         "source": "async_ev_cnn_torch/csrc/gather_gemm.cu",
          "replaces": "async_ev_cnn_tpu/ops/pallas_rulebook_blocks.py:94",
          "launches": seq_launches["rulebook_gather_gemm_blocks"],
          "max_abs_err": max(r["err"] for r in k3), "ms": total("ms"),
@@ -700,7 +817,8 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
          # no single PyTorch call gathers and multiplies at the active sites
          "library_ms": None, "dense_pair_ms": total("dense_pair_ms"),
          "call_ms": total("call_ms")},
-        {"name": "rulebook_gather_gemm", "route": "cuda", "source": src,
+        {"name": "rulebook_gather_gemm", "route": "cuda",
+         "source": "async_ev_cnn_torch/csrc/rulebook.cu",
          "replaces": "async_ev_cnn_tpu/ops/pallas_rulebook.py:97",
          "launches": k4_launches["rulebook_gather_gemm"], "max_abs_err": k4["err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound"][0],
@@ -937,7 +1055,7 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("surface_scan", "rulebook", "fused_stem", "gather_copy")
+    sources = ("surface_scan", "rulebook", "gather_gemm", "fused_stem", "gather_copy")
     cuda_build.load_all(sources)  # one nvcc per source, started together
     parts = []
     for src in sources:
