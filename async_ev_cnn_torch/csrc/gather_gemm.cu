@@ -1,8 +1,8 @@
 // Tiled, split-reduction gather-GEMM for Hopper (sm_90a): the 'sparse_pallas'
-// conv mode's update of active 1x8 site blocks (K3), and the conv of whole
-// active output rows (K5).
+// conv mode's update of active 1x8 site blocks (K3) and of single active
+// sites at any stride (K4), and the conv of whole active output rows (K5).
 //
-// Both compute, for a list of M output sites of a stride-1 conv over the
+// All three compute, for a list of M output sites of a conv over the
 // padded HWC featuremap and conv-actfn planes,
 //
 //     out_fm[s, o] = bias[o] + sum_{dy, dx, c} fm[y(s) + dy, x(s) + dx, c] * W[dy, dx, c, o]
@@ -14,15 +14,19 @@
 //   * K3 replaces async_ev_cnn_tpu/ops/pallas_rulebook_blocks.py::
 //     rulebook_gather_gemm_pallas_blocks (_kernel): site (b, s) of block b
 //     has corner (by[b], 8 * bx[b] + s), out [K, 8, O].
+//   * K4 replaces async_ev_cnn_tpu/ops/pallas_rulebook.py::
+//     rulebook_gather_gemm_pallas (_kernel): site s has corner
+//     (ys[s] * stride, xs[s] * stride), out [K, O].
 //   * K5 replaces async_ev_cnn_tpu/ops/pallas_rows.py::
 //     rows_gather_conv_pallas (_kernel): site (r, x), x < ow, has corner
 //     (rows[r], x), out [R, ow, O].
 //
-// The site-to-corner map is the only difference (a template argument).
-// The rest is an implicit GEMM: M is the sites of both planes, N = O, and
-// the reduction is kh * kw * C in HWIO order, so W is a row-major
-// [kh * kw * C, O] matrix and, for each dy, one site's (dx, c) run is kw * C
-// contiguous floats of the HWC plane.
+// The site-to-corner map (SiteMap, a template argument) is the only
+// difference, and it is read once per block, never in the inner loop.  The
+// rest is an implicit GEMM: M is the sites of both planes, N = O, and the
+// reduction is kh * kw * C in HWIO order, so W is a row-major
+// [kh * kw * C, O] matrix and, for each dy, one site's (dx, c) run is
+// kw * C contiguous floats of the HWC plane at every stride.
 //
 // Design, against what holds a gather-GEMM of few sites and long
 // reductions back on 132 SMs (too few blocks, a shared-memory load per
@@ -132,8 +136,11 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 struct Geometry {
-  int m_sites, hp, wpc, c_len, o_len, kwc, k_total, ow;
+  int m_sites, hp, wpc, c_len, o_len, kwc, k_total, ow, stride;
 };
+
+// where a site's receptive field starts (see the file comment)
+enum class SiteMap { kBlocks = 0, kRows = 1, kSites = 2 };
 
 // One slice's A rows of both planes (ROUND = false: issue the copies;
 // ROUND = true: round to TF32 the elements this thread copied, same
@@ -224,9 +231,9 @@ __device__ __forceinline__ float lane(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// ROWS = false: K3's block map (ys = by, xs = bx); true: K5's row map
-// (ys = rows, xs unused, ow columns a row)
-template <class T, bool ROWS, bool TF32>
+// MAP: K3's block map (ys = by, xs = bx), K5's row map (ys = rows, xs
+// unused, ow columns a row) or K4's site map (ys, xs, stride)
+template <class T, SiteMap MAP, bool TF32>
 __global__ void __launch_bounds__(T::THREADS, 2)
 gather_gemm_kernel(const float* __restrict__ fm, const float* __restrict__ ca,
                    const float* __restrict__ w, const float* __restrict__ bias,
@@ -247,13 +254,16 @@ gather_gemm_kernel(const float* __restrict__ fm, const float* __restrict__ ca,
     const int site = m0 + threadIdx.x;
     int y = g.hp, x = 0;  // a site past M reads zeros and is never written
     if (site < g.m_sites) {
-      if (ROWS) {
+      if (MAP == SiteMap::kRows) {
         const int r = site / g.ow;
         y = ys[r];
         x = site - r * g.ow;
-      } else {
+      } else if (MAP == SiteMap::kBlocks) {
         y = ys[site >> 3];
         x = xs[site >> 3] * 8 + (site & 7);
+      } else {
+        y = ys[site] * g.stride;
+        x = xs[site] * g.stride;
       }
     }
     y0s[threadIdx.x] = y;
@@ -359,43 +369,54 @@ __global__ void split_sum_kernel(const float* __restrict__ partial,
     out_ca[i - plane_len] = s;
 }
 
-template <class T, bool ROWS, bool TF32>
-int launch(const float* fm, const float* ca, const float* w, const float* bias,
-           const int32_t* ys, const int32_t* xs, float* out_fm, float* out_ca,
-           float* partial, const Geometry& g, int grid_x, int grid_y, int splits,
-           int smem_bytes, int a_vec, int w_vec, cudaStream_t stream) {
+// the device pointers of one call
+struct Operands {
+  const float *fm, *ca, *w, *bias;
+  const int32_t *ys, *xs;
+  float *out_fm, *out_ca, *partial;
+};
+
+// the caller's plan
+struct Plan {
+  int grid_x, grid_y, splits, smem_bytes, a_vec, w_vec;
+};
+
+template <class T, SiteMap MAP, bool TF32>
+int launch(const Operands& a, const Geometry& g, const Plan& p, cudaStream_t stream) {
   constexpr int kSmem = 2 * T::STAGE * static_cast<int>(sizeof(float));
   const int n_slices = (g.k_total + T::BK - 1) / T::BK;
   // the caller's plan must be this instance's: same stage, every site and
   // channel covered, 1 <= S <= the number of slices
-  if (smem_bytes != kSmem || static_cast<long long>(grid_x) * T::BS < g.m_sites ||
-      grid_y * T::BN < g.o_len || splits < 1 || splits > n_slices)
+  if (p.smem_bytes != kSmem || static_cast<long long>(p.grid_x) * T::BS < g.m_sites ||
+      p.grid_y * T::BN < g.o_len || p.splits < 1 || p.splits > n_slices)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = gather_gemm_kernel<T, ROWS, TF32>;
+  auto kernel = gather_gemm_kernel<T, MAP, TF32>;
   if (kSmem > 48 * 1024) {  // above the default limit: opt in, once per instance
     static const cudaError_t opt_in =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   }
-  kernel<<<dim3(grid_x, grid_y, splits), T::THREADS, kSmem, stream>>>(
-      fm, ca, w, bias, ys, xs, out_fm, out_ca, partial, g, n_slices, a_vec, w_vec);
-  if (splits > 1) {
+  kernel<<<dim3(p.grid_x, p.grid_y, p.splits), T::THREADS, kSmem, stream>>>(
+      a.fm, a.ca, a.w, a.bias, a.ys, a.xs, a.out_fm, a.out_ca, a.partial, g, n_slices,
+      p.a_vec, p.w_vec);
+  if (p.splits > 1) {
     const int plane_len = g.m_sites * g.o_len;
     split_sum_kernel<<<(2 * plane_len + 255) / 256, 256, 0, stream>>>(
-        partial, bias, out_fm, out_ca, plane_len, g.o_len, splits);
+        a.partial, a.bias, a.out_fm, a.out_ca, plane_len, g.o_len, p.splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T, bool ROWS>
-int launch_tier(int tf32, const float* fm, const float* ca, const float* w, const float* bias,
-                const int32_t* ys, const int32_t* xs, float* out_fm, float* out_ca,
-                float* partial, const Geometry& g, int grid_x, int grid_y, int splits,
-                int smem_bytes, int a_vec, int w_vec, cudaStream_t stream) {
-  // the tier is a template argument: the 'highest' code carries no branch
-  return (tf32 ? launch<T, ROWS, true> : launch<T, ROWS, false>)(
-      fm, ca, w, bias, ys, xs, out_fm, out_ca, partial, g, grid_x, grid_y, splits,
-      smem_bytes, a_vec, w_vec, stream);
+// the tile and the tier are template arguments: the 'highest' code carries
+// no branch
+template <SiteMap MAP>
+int launch_map(int tile, int tf32, const Operands& a, const Geometry& g, const Plan& p,
+               cudaStream_t stream) {
+  if (tile == 0)
+    return (tf32 ? launch<Narrow, MAP, true> : launch<Narrow, MAP, false>)(a, g, p, stream);
+  if (tile == 1)
+    return (tf32 ? launch<Wide, MAP, true> : launch<Wide, MAP, false>)(a, g, p, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -406,7 +427,8 @@ int launch_tier(int tf32, const float* fm, const float* ca, const float* w, cons
 // stream.  fm, ca: f32 [hp, wp, c_len]; w: f32 [kh, kw, c_len, o_len];
 // bias: f32 [o_len]; out_fm, out_ca: f32 [m_sites, o_len].
 //   site_map 0 (K3): ys = by, xs = bx, int32 [m_sites / 8];
-//   site_map 1 (K5): ys = rows, int32 [m_sites / ow], xs unused.
+//   site_map 1 (K5): ys = rows, int32 [m_sites / ow], xs unused;
+//   site_map 2 (K4): ys, xs, int32 [m_sites], corners at stride.
 // tile 0 is the narrow instance, 1 the wide one; grid_x, grid_y, splits and
 // smem_bytes come from the plan (ops/rulebook_gemm.gather_gemm_plan) and
 // are checked against the instance.  partial: f32 [splits, 2, m_sites,
@@ -416,21 +438,22 @@ int launch_tier(int tf32, const float* fm, const float* ca, const float* w, cons
 extern "C" int gather_gemm(const float* fm, const float* ca, const float* w,
                            const float* bias, const int32_t* ys, const int32_t* xs,
                            float* out_fm, float* out_ca, float* partial, int m_sites, int hp,
-                           int wp, int c_len, int o_len, int kh, int kw, int ow, int site_map,
-                           int tile, int grid_x, int grid_y, int splits, int smem_bytes,
-                           int a_vec, int w_vec, int tf32, cudaStream_t stream) {
-  const Geometry g{m_sites, hp, wp * c_len, c_len, o_len, kw * c_len, kh * kw * c_len, ow};
-  if (site_map == 0 && tile == 0)
-    return launch_tier<Narrow, false>(tf32, fm, ca, w, bias, ys, xs, out_fm, out_ca, partial, g,
-                                      grid_x, grid_y, splits, smem_bytes, a_vec, w_vec, stream);
-  if (site_map == 0 && tile == 1)
-    return launch_tier<Wide, false>(tf32, fm, ca, w, bias, ys, xs, out_fm, out_ca, partial, g,
-                                    grid_x, grid_y, splits, smem_bytes, a_vec, w_vec, stream);
-  if (site_map == 1 && tile == 0)
-    return launch_tier<Narrow, true>(tf32, fm, ca, w, bias, ys, xs, out_fm, out_ca, partial, g,
-                                     grid_x, grid_y, splits, smem_bytes, a_vec, w_vec, stream);
-  if (site_map == 1 && tile == 1)
-    return launch_tier<Wide, true>(tf32, fm, ca, w, bias, ys, xs, out_fm, out_ca, partial, g,
-                                   grid_x, grid_y, splits, smem_bytes, a_vec, w_vec, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+                           int wp, int c_len, int o_len, int kh, int kw, int ow, int stride,
+                           int site_map, int tile, int grid_x, int grid_y, int splits,
+                           int smem_bytes, int a_vec, int w_vec, int tf32,
+                           cudaStream_t stream) {
+  const Operands a{fm, ca, w, bias, ys, xs, out_fm, out_ca, partial};
+  const Geometry g{m_sites, hp, wp * c_len, c_len, o_len, kw * c_len, kh * kw * c_len, ow,
+                   stride};
+  const Plan p{grid_x, grid_y, splits, smem_bytes, a_vec, w_vec};
+  switch (site_map) {
+    case 0:
+      return launch_map<SiteMap::kBlocks>(tile, tf32, a, g, p, stream);
+    case 1:
+      return launch_map<SiteMap::kRows>(tile, tf32, a, g, p, stream);
+    case 2:
+      return launch_map<SiteMap::kSites>(tile, tf32, a, g, p, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

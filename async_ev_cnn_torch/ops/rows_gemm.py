@@ -88,7 +88,8 @@ def rows_gather_conv(fm_hwc, ca_hwc, kernel_hwio, bias, row_idx):
     out_ca = torch.empty_like(out_fm)
     if out_fm.numel() == 0:  # nothing to compute: no launch, nothing counted
         return out_fm, out_ca
-    launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, row_idx, None, out_fm, out_ca, ow)
+    launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, row_idx, None, out_fm, out_ca, "rows",
+                       ow=ow)
     LAUNCHES["rows_gather_conv"] += 1
     return out_fm, out_ca
 

@@ -18,11 +18,11 @@ kernel, a ``[O]`` bias (added to the featuremap plane only) and int32
   per site ``(ys, xs)`` the ``[kh, kw, C]`` box at ``(ys*s, xs*s)`` ->
   ``[K, O]`` per plane.
 
-K3 runs the tiled, split-reduction gather-GEMM of ``csrc/gather_gemm.cu``,
-which K5 (:mod:`async_ev_cnn_torch.ops.rows_gemm`) shares; both launch it
+Both run the tiled, split-reduction gather-GEMM of ``csrc/gather_gemm.cu``,
+which K5 (:mod:`async_ev_cnn_torch.ops.rows_gemm`) shares: K3 with its
+block map, K4 with its per-site map at any stride.  Each launches it
 through :func:`launch_gather_gemm` with the launch plan of
-:func:`gather_gemm_plan`.  K4 runs ``rulebook_kernel`` of
-``csrc/rulebook.cu``.
+:func:`gather_gemm_plan`.
 
 Both read the matmul tier (:mod:`async_ev_cnn_torch.ops.conv`): at
 ``'default'`` on the card the kernels and their plain versions round both
@@ -53,13 +53,6 @@ BLOCK_W = 8
 #: kernel launches per wrapper since the counts were last reset
 LAUNCHES = {"rulebook_gather_gemm_blocks": 0, "rulebook_gather_gemm": 0}
 
-# K4's block shape (csrc/rulebook.cu): 16 output sites by 32 output
-# channels a block, the inputs and weights staged in shared memory a chunk
-# of channels at a time under this budget
-_SITES_PER_BLOCK = 16
-_O_TILE = 32
-_STAGE_BYTES = 40 * 1024
-
 # the gather-GEMM's instances (csrc/gather_gemm.cu): output sites a block
 # (both planes: twice as many GEMM rows), output channels a block, reduction
 # depth a slice, threads a block
@@ -70,6 +63,9 @@ GATHER_GEMM_TILES = {"narrow": (64, 16, 16, 128), "wide": (32, 64, 32, 256)}
 GATHER_GEMM_TARGET_BLOCKS = 2 * 132
 #: most reduction splits of one call
 GATHER_GEMM_MAX_SPLITS = 32
+#: the gather-GEMM's site-to-corner maps (``SiteMap`` in csrc/gather_gemm.cu):
+#: K3's 1x8 blocks, K5's whole rows, K4's single sites at any stride
+SITE_MAPS = {"blocks": 0, "rows": 1, "sites": 2}
 
 
 def reset_launches() -> None:
@@ -184,12 +180,15 @@ def gather_gemm_plan(m: int, o: int, kh: int, kw: int, c: int,
 
 
 def launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs, out_fm, out_ca,
-                       ow: int = 0, splits: int | None = None) -> None:
+                       site_map: str, ow: int = 0, stride: int = 1,
+                       splits: int | None = None) -> None:
     """Launch ``csrc/gather_gemm.cu`` once (and its split pass) on the
-    card: K3's block map when ``xs`` is given, K5's row map (``ow``
-    columns a row) otherwise.  ``out_fm``/``out_ca`` are ``[M, O]``
-    contiguous; ``splits`` overrides the plan's (see
-    :func:`gather_gemm_plan`).  The caller counts the launch."""
+    card with one of :data:`SITE_MAPS`: ``'blocks'`` (K3: ``ys, xs`` =
+    ``by, bx``), ``'rows'`` (K5: ``ys`` the rows, ``ow`` columns a row,
+    ``xs`` None) or ``'sites'`` (K4: corners ``(ys * stride, xs *
+    stride)``).  ``out_fm``/``out_ca`` are ``[M, O]`` contiguous;
+    ``splits`` overrides the plan's (see :func:`gather_gemm_plan`).  The
+    caller counts the launch."""
     kh, kw, c, o = kernel_hwio.shape
     hp, wp, _ = fm_hwc.shape
     m = out_fm.numel() // o
@@ -205,19 +204,9 @@ def launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs, out_fm, out_ca
         _ptr(kernel_hwio), _ptr(bias), _ptr(ys), _ptr(ys if xs is None else xs),
         _ptr(out_fm), _ptr(out_ca), _ptr(partial),
         *(ctypes.c_int(int(v)) for v in (
-            m, hp, wp, c, o, kh, kw, ow, xs is None, plan.tile == "wide", plan.grid[0],
-            plan.grid[1], plan.splits, plan.smem_bytes, a_vec, w_vec, tier_uses_tf32())))
-
-
-def _channel_chunk(kh: int, kw: int, c: int) -> int:
-    """K4's channels staged per pass so both planes' boxes and the weight
-    tile fit the budget."""
-    per_channel = 4 * (2 * _SITES_PER_BLOCK + _O_TILE) * kh * kw
-    if per_channel > _STAGE_BYTES:
-        raise ValueError(
-            f"a {kh}x{kw} receptive field does not fit the kernel's shared "
-            "memory stage")
-    return min(c, _STAGE_BYTES // per_channel)
+            m, hp, wp, c, o, kh, kw, ow, stride, SITE_MAPS[site_map], plan.tile == "wide",
+            plan.grid[0], plan.grid[1], plan.splits, plan.smem_bytes, a_vec, w_vec,
+            tier_uses_tf32())))
 
 
 def _check_inputs(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs):
@@ -262,7 +251,7 @@ def rulebook_gather_gemm_blocks(fm_hwc, ca_hwc, kernel_hwio, bias, by, bx,
     out_ca = torch.empty_like(out_fm)
     if out_fm.numel() == 0:
         return out_fm, out_ca  # nothing to compute: no launch, nothing counted
-    launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, by, bx, out_fm, out_ca)
+    launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, by, bx, out_fm, out_ca, "blocks")
     LAUNCHES["rulebook_gather_gemm_blocks"] += 1
     return out_fm, out_ca
 
@@ -288,12 +277,7 @@ def rulebook_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs,
     out_ca = torch.empty_like(out_fm)
     if out_fm.numel() == 0:
         return out_fm, out_ca  # nothing to compute: no launch, nothing counted
-    hp, wp, _ = fm_hwc.shape
-    chunk = _channel_chunk(kh, kw, c)
-    cuda_build.launch(
-        "rulebook", "rulebook_gather_gemm", dev, _ptr(fm_hwc), _ptr(ca_hwc),
-        _ptr(kernel_hwio), _ptr(bias), _ptr(ys), _ptr(xs), _ptr(out_fm), _ptr(out_ca),
-        *(ctypes.c_int(v) for v in (k, hp, wp, c, o, kh, kw, stride, chunk,
-                                    tier_uses_tf32())))
+    launch_gather_gemm(fm_hwc, ca_hwc, kernel_hwio, bias, ys, xs, out_fm, out_ca, "sites",
+                       stride=stride)
     LAUNCHES["rulebook_gather_gemm"] += 1
     return out_fm, out_ca

@@ -12,16 +12,18 @@ PyTorch version of the same arithmetic:
 * :func:`surface_scan_tsmap` (JAX ``surface_scan_pallas``) reads a
   per-chunk int32 timestamp map, the sentinel meaning no event.
 
-Both are bit-identical to iterating ``ops.integrate.integrate_step``.  A
-wrapper runs its plain version for tensors on the CPU, and the kernel for
-tensors on the card — or raises; it never falls back.  ``LAUNCHES`` counts
-kernel launches per function, so a run can show that it went through the
-kernels.
+Both are bit-identical to iterating ``ops.integrate.integrate_step``.  K1
+is two launches, a binning pass and the scan, cut by
+:func:`scan_events_plan`.  A wrapper runs its plain version for tensors on
+the CPU, and the kernel for tensors on the card — or raises; it never falls
+back.  ``LAUNCHES`` counts wrapper calls that launched their kernels, so a
+run can show that it went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +39,13 @@ LAUNCHES = {"surface_scan_events": 0, "surface_scan_tsmap": 0}
 
 #: int32 timestamp meaning "no event at this pixel" (the JAX package's value)
 TS_SENTINEL_VALUE = -(2**31) + 1
+
+# K1's shape (csrc/surface_scan.cu): pixels a tile (one scan block, a
+# thread a pixel), chunks a window
+SCAN_TILE = 128
+SCAN_WINDOW = 64
+#: shared memory one block of the H100 may use
+SMEM_LIMIT_BYTES = 232_448
 
 
 def reset_launches() -> None:
@@ -89,6 +98,40 @@ def surface_scan_tsmap_plain(surface, ts_map, d, last_ts, leak: float) -> torch.
     return out
 
 
+class ScanEventsPlan(NamedTuple):
+    """How one K1 call is cut: ``n_tiles`` tiles of ``tile`` pixels (the
+    last one ragged), each a block of the scan walking T in ``n_windows``
+    windows of ``window`` chunks (the last one ragged); the binning pass's
+    dynamic shared memory (a bucket start per tile, and one more); and the
+    int32 workspace: ``[T, E]`` binned entries of two words, then
+    ``[T, n_tiles + 1]`` bucket offsets."""
+    tile: int
+    window: int
+    n_tiles: int
+    n_windows: int
+    bin_smem_bytes: int
+    workspace: int
+
+
+def scan_events_plan(t: int, e: int, p: int) -> ScanEventsPlan:
+    """K1's launch plan for ``T = t`` chunks of ``E = e`` winners over ``P =
+    p`` pixels.  The tile is 128 pixels: a block of 4 warps, a thread a
+    pixel, so that the eFCN's 35,840 pixels give 280 blocks, about two an
+    SM of the H100's 132 and all resident at once (the scan's parallelism
+    is its pixels; time is serial).  The window is 64 chunks: its
+    ``[64, 128]`` float contribution array is 32 KB, so a block's static
+    shared memory stays under 48 KB and six blocks could share an SM, and
+    a T=200 dispatch crosses 4 windows, 8 barriers a block.  Raises where
+    the binning pass's buckets would not fit a block's shared memory."""
+    n_tiles = -(-p // SCAN_TILE)
+    bin_smem = 4 * (n_tiles + 1)
+    if bin_smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"{p} pixels make {n_tiles} tiles: their bucket starts "
+                         f"({bin_smem} B) exceed a block's shared memory")
+    return ScanEventsPlan(SCAN_TILE, SCAN_WINDOW, n_tiles, -(-t // SCAN_WINDOW), bin_smem,
+                          2 * t * e + t * (n_tiles + 1))
+
+
 def _launch(fn_name: str, device, *args) -> None:
     cuda_build.launch("surface_scan", fn_name, device, *args)
     LAUNCHES[fn_name] += 1
@@ -124,9 +167,15 @@ def surface_scan_events(surface, pix, dt, d, leak: float) -> torch.Tensor:
     out = torch.empty((t, c, h, w), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out  # nothing to compute: no launch, nothing counted
+    plan = scan_events_plan(t, e, c * h * w)
+    if plan.workspace >= 2**31:
+        raise ValueError("K1 indexes its binned winner lists with int32")
+    work = torch.empty(plan.workspace, dtype=torch.int32, device=dev)
     _launch("surface_scan_events", dev, _ptr(surface), _ptr(pix), _ptr(dt),
-            _ptr(d), _ptr(out), ctypes.c_int(t), ctypes.c_int(e),
-            ctypes.c_int(c * h * w), ctypes.c_float(np.float32(leak)))
+            _ptr(d), _ptr(out), _ptr(work), ctypes.c_int(t), ctypes.c_int(e),
+            ctypes.c_int(c * h * w), ctypes.c_float(np.float32(leak)),
+            *(ctypes.c_int(v) for v in (plan.tile, plan.window, plan.n_tiles,
+                                        plan.bin_smem_bytes)))
     return out
 
 

@@ -13,8 +13,13 @@ Phases, one line each on standard output:
    spills of each;
 3. kernels: each kernel against its plain PyTorch version bit for bit at
    the eFCN's full width (160x224, T=200 chunks of 256 events), against
-   each other, on a 2-channel ragged case, on a large-dt case, and against
-   iterating integrate_step; with median times and the memory bound;
+   each other, on the winner lists of a clustered stream (make_stream,
+   radius 8), on 2-channel ragged cases (one across two of K1's windows),
+   with winners replaced by -1 and by P, on a large-dt case, and against
+   iterating integrate_step; with K1's device time (its binning pass and
+   scan) on the uniform and the clustered lists, the binning pass's
+   share, the device time of the winner dedup (chunk_event_updates)
+   beside it, K2's time and the memory bounds;
 4. path: the eFCN from configs/efcn_event.yml with seeded random weights,
    served by StreamingPipeline (plain wire, T=200 chunks per dispatch,
    batched head.decode, the default 'events' engine: K1) for 16
@@ -31,18 +36,20 @@ Then the incremental (sequential) engine, the eFCN in conv_mode
 'sparse_pallas' on a clustered stream (events around a drifting centre,
 radius 8, ts gaps 1..14 us, the JAX benchmark's clustered_stream):
 
-7. rulebook kernels: first the gather-GEMM that K3 and K5 share
+7. rulebook kernels: first the gather-GEMM that K3, K4 and K5 share
    (csrc/gather_gemm.cu) at its edges (O = 110, C = 1, ow = 7, right-edge
-   blocks, uneven reduction splits, planes off 16-byte alignment) at
+   blocks, uneven reduction splits, planes off 16-byte alignment; K4 also
+   at strides 2 and 3 with boxes past the bottom and right edges) at
    'highest' and 'default'; then K3 (rulebook_gather_gemm_blocks) at every
    conv layer's shapes, its 1x8 blocks taken from that layer's real active
    mask at its block capacity, and K4 (rulebook_gather_gemm) at stride 2 on
-   conv2's shapes, each against its plain version within 1e-5 * (1 + max
-   |plain|) (float32 sums of up to 9 * 512 terms in another order) and bit
-   for bit against a second launch; with K3's launch plan (tile, splits,
-   grid), median times, the plain versions' times, the memory/FFMA bound
-   and the time of the layer's dense [2, C, H, W] conv pair (the crossover
-   reference);
+   conv2's shapes (and once more with 64 output channels, the wide tile's
+   full width), each against its plain version within 1e-5 * (1 + max
+   |plain|) (float32 sums of up to 9 * 512 terms in another order) at
+   'highest' and 'default' and bit for bit against a second launch; with
+   the launch plan (tile, splits, grid), device times, the plain versions'
+   times, the memory/FFMA bound and the time of the layer's dense
+   [2, C, H, W] conv pair (the crossover reference);
 8. path: YoloEventTorch.scan over 64 chunks of 256 events (the sequential
    engine, not all layers 'full'), the counts set to 0 just before and
    read just after: events/s, ms/chunk, and per conv layer the K3
@@ -67,16 +74,14 @@ paths, and the precision options:
 13. K5 (rows_gather_conv): at every conv layer's shapes, its active rows
     taken from that layer's real mask of the clustered stream at its
     row_capacity, against its plain version within 1e-5 * (1 + max
-    |plain|) and bit for bit against a second launch, with its launch plan,
-    its device time, its split pass's share, its device time with the
-    reduction unsplit (S = 1) and with one split more than the plan's, the
-    plain version's time, the bound and the device time of
-    rows_conv_pair's own conv over the gathered row stack; then its path,
-    the 'sparse_rows' update of one chunk through K5
+    |plain|) at 'highest' and 'default' and bit for bit against a second
+    launch, with its launch plan, its device time, its split pass's share,
+    its device time with the reduction unsplit (S = 1) and with one split
+    more than the plan's, the plain version's time, the bound and the
+    device time of rows_conv_pair's own conv over the gathered row stack;
+    then its path, the 'sparse_rows' update of one chunk through K5
     (kernel_rows_conv_pair) at every layer, within the same tolerance
-    of rows_conv_pair (counts set to 0 just before, read just after); and
-    K3 and K5 against their plain versions at the 'default' tier (TF32
-    operands), same tolerance;
+    of rows_conv_pair (counts set to 0 just before, read just after);
 14. K6 (fused_stem) on the T=200 surfaces of a full-width dispatch (its
     path: one call, counted), bit for bit against its plain version and
     within 1e-5 of fused_conv_pool and of the direct 'full' conv1 -> pool1
@@ -96,14 +101,15 @@ paths, and the precision options:
     'highest' is restored whatever happens.
 
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
-result line.  K1's and K2's ``ms`` are CUDA-event times over many calls;
+result line.  K2's ``ms`` is a CUDA-event time over many calls; K1's,
 K3's, K4's and K5's ``ms`` are their kernels' device time per call from
-torch.profiler (K3's and K5's: the gather-GEMM kernel plus, where the plan
-splits the reduction, its split pass; ``call_ms`` beside it is the
-event-timed wall time of a wrapper call, which the host's launch overhead
-sets at these sizes), and ``dense_pair_ms`` the device time of the dense
-conv pair.  K3's and K5's times and bounds are the sums over their seven
-layer calls of one chunk.  Any failure raises and exits non-zero without a
+torch.profiler (K1's: the binning pass and the scan; K3's, K4's and K5's:
+the gather-GEMM kernel plus, where the plan splits the reduction, its
+split pass; ``call_ms`` beside it is the event-timed wall time of a
+wrapper call, which the host's launch overhead sets at these sizes), and
+``dense_pair_ms`` the device time of the dense conv pair.  K3's and K5's
+times and bounds are the sums over their seven layer calls of one
+chunk.  Any failure raises and exits non-zero without a
 result line; without a CUDA device, or without the package beside it, it
 exits non-zero.
 """
@@ -135,18 +141,27 @@ SEQ_CHUNKS = 64
 WARM_CHUNKS = 8
 CAPACITY_FRAC = 0.25
 KERNEL_REL_TOL = 1e-5
-# the kernels of one K3 or K5 call (csrc/gather_gemm.cu): the gather-GEMM
-# and, where its plan splits the reduction, the split pass
+# the kernels of one K3, K4 or K5 call (csrc/gather_gemm.cu): the
+# gather-GEMM and, where its plan splits the reduction, the split pass
 GG_KERNELS = ("gather_gemm_kernel", "split_sum_kernel")
+# the kernels of one K1 call (csrc/surface_scan.cu): the binning pass, the scan
+K1_KERNELS = ("bin_events_kernel", "scan_events_kernel")
 # the gather-GEMM's edge shapes: (what, hp, wp, C, O, kh, kw, float offset
-# of the planes from a 16-byte boundary)
+# of the planes from a 16-byte boundary, stride).  Stride 1 runs K3, K5 and
+# K4; another stride runs K4 alone, its sites one past the last output row
+# and column (boxes past the bottom and right edges).
 GG_EDGES = (
-    ("O=110 ow=7", 5, 7, 24, 110, 1, 1, 0),
-    ("C=1 O=16 ow=7", 8, 9, 1, 16, 3, 3, 0),
-    ("C=1 O=16 wide", 10, 42, 1, 16, 3, 3, 0),
-    ("C=3 O=70 ow=7", 7, 9, 3, 70, 3, 3, 0),
-    ("uneven splits", 5, 9, 200, 300, 3, 3, 0),
-    ("planes off 16 B", 6, 12, 8, 40, 3, 3, 1),
+    ("O=110 ow=7", 5, 7, 24, 110, 1, 1, 0, 1),
+    ("C=1 O=16 ow=7", 8, 9, 1, 16, 3, 3, 0, 1),
+    ("C=1 O=16 wide", 10, 42, 1, 16, 3, 3, 0, 1),
+    ("C=3 O=70 ow=7", 7, 9, 3, 70, 3, 3, 0, 1),
+    ("uneven splits", 5, 9, 200, 300, 3, 3, 0, 1),
+    ("planes off 16 B", 6, 12, 8, 40, 3, 3, 1, 1),
+    ("stride 2 C=16 O=32", 13, 17, 16, 32, 3, 3, 0, 2),
+    ("stride 3 C=3 O=70", 14, 19, 3, 70, 3, 3, 0, 3),
+    ("stride 2 C=1 O=16", 11, 12, 1, 16, 3, 3, 0, 2),
+    ("stride 2 O=110", 9, 9, 24, 110, 1, 1, 0, 2),
+    ("stride 3 off 16 B", 10, 13, 8, 40, 3, 3, 1, 3),
 )
 TIER_GATE_STEPS = 200
 
@@ -228,9 +243,9 @@ def device_ms(fn, kernel_keys=None, iters: int = 20, per_call: int = 1) -> float
     A trace must record exactly ``iters * per_call`` launches of the named
     kernels (``fn`` launches ``per_call`` of them a call), and at least one
     kernel when none is named.  A plain trace has lost kernel records on
-    the H100 (once one launch, once a whole trace; a trace with a profiler
-    schedule loses them often), so a short trace is taken again, 3 traces
-    at most."""
+    the H100 (once one launch, once a whole trace, once three traces in a
+    row; a trace with a profiler schedule loses them often), so a short
+    trace is taken again after a pause, 5 traces at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -238,7 +253,8 @@ def device_ms(fn, kernel_keys=None, iters: int = 20, per_call: int = 1) -> float
     fn()
     torch.cuda.synchronize()
     counts = []
-    for _ in range(3):
+    for attempt in range(5):
+        time.sleep(0.2 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -250,7 +266,7 @@ def device_ms(fn, kernel_keys=None, iters: int = 20, per_call: int = 1) -> float
         if counts[-1] == iters * per_call or (keys is None and counts[-1] > 0):
             return total_ms / iters
     raise RuntimeError(f"chip_smoke check failed: profiled {counts} launches of "
-                       f"{keys} in 3 traces of {iters} calls x {per_call}")
+                       f"{keys} in 5 traces of {iters} calls x {per_call}")
 
 
 def gg_device_ms(fn, plan) -> float:
@@ -292,15 +308,19 @@ def sequential_surfaces(s0, prev_ts, chunks, leak):
 
 
 def check_kernels_small(dev) -> None:
-    """Ragged 2-channel and large-dt cases: kernels == plain == sequential."""
+    """Ragged 2-channel and large-dt cases: kernels == plain == sequential;
+    K1 across two windows with winners replaced by -1 and by P."""
     from async_ev_cnn_torch.layers.types import EventChunk
     from async_ev_cnn_torch.ops import integrate as it
     from async_ev_cnn_torch.ops import surface_scan as sc
 
     rng = np.random.RandomState(7)
     cases = []
-    for channels, (h, w) in ((2, (13, 17)), (1, (16, 16)), (2, (16, 16))):
-        t, e = 10, 12
+    # (13, 17) x 2 channels: 442 pixels, K1's last tile ragged; T = 70: two
+    # of K1's windows, the second ragged
+    for channels, (h, w), t in ((2, (13, 17), 10), (1, (16, 16), 10), (2, (16, 16), 10),
+                                (2, (13, 17), 70)):
+        e = 12
         ts = np.cumsum(rng.randint(1, 40, t * e)).astype(np.int32).reshape(t, e)
         valid = rng.rand(t, e) < 0.8
         valid[3] = False  # one all-padding chunk: an exact identity step
@@ -335,6 +355,14 @@ def check_kernels_small(dev) -> None:
                 f"K2 != plain ({what})")
         require(bit_equal(k1, ref), f"K1 != iterated integrate_step ({what})")
         require(bit_equal(k2, ref), f"K2 != iterated integrate_step ({what})")
+        # winners replaced by -1 and by P: no event in either version
+        p = channels * h * w
+        pix = pix.clone()
+        pix[::3, 0] = -1
+        pix[1::3, 1] = p
+        require(bit_equal(sc.surface_scan_events(s0, pix, dt, d, leak),
+                          sc.surface_scan_events_plain(s0, pix, dt, d, leak)),
+                f"K1 != plain with winners of -1 and P ({what})")
 
     # zero chunks: an empty result, and no launch is made or counted
     before = dict(sc.LAUNCHES)
@@ -380,8 +408,9 @@ def kernel_err(fn, plain, args, what: str) -> float:
 
 
 def gather_gemm_edges(dev) -> str:
-    """K3 and K5 at the gather-GEMM's edge shapes (GG_EDGES), every block
-    and a repeated last row, against their plain versions and a second
+    """K3, K4 and K5 at the gather-GEMM's edge shapes (GG_EDGES): K3 every
+    block, K5 a repeated last row, K4 every site up to one past the last
+    output row and column, against their plain versions and a second
     launch at 'highest' and 'default' ('highest' is restored whatever
     happens).  Returns the phase's line."""
     from async_ev_cnn_torch.ops import rows_gemm as tr
@@ -389,26 +418,33 @@ def gather_gemm_edges(dev) -> str:
     from async_ev_cnn_torch.ops.conv import set_matmul_precision
 
     rng = np.random.RandomState(11)
-    worst, plans = {"K3": 0.0, "K5": 0.0}, []
+    worst, plans = {"K3": 0.0, "K4": 0.0, "K5": 0.0}, []
     try:
         for tier in ("highest", "default"):
             set_matmul_precision(tier)
-            for what, hp, wp, c, o, kh, kw, off in GG_EDGES:
+            for what, hp, wp, c, o, kh, kw, off, stride in GG_EDGES:
                 buf = torch.from_numpy(rng.randn(2, hp * wp * c + off).astype(np.float32)).to(dev)
                 fm, ca = (buf[i, off:].view(hp, wp, c) for i in (0, 1))
                 w = torch.from_numpy((rng.randn(kh, kw, c, o) * 0.1).astype(np.float32)).to(dev)
                 b = torch.from_numpy(rng.randn(o).astype(np.float32)).to(dev)
-                oh, ow = hp - kh + 1, wp - kw + 1
-                wb = -(-ow // rg.BLOCK_W)
-                by = torch.arange(oh, dtype=torch.int32, device=dev).repeat_interleave(wb)
-                bx = torch.arange(wb, dtype=torch.int32, device=dev).repeat(oh)
-                rows = torch.tensor([oh - 1, 0, oh // 2, oh - 1], dtype=torch.int32, device=dev)
-                for name, fn, plain, args, m in (
-                        ("K3", rg.rulebook_gather_gemm_blocks,
-                         rg.rulebook_gather_gemm_blocks_plain, (fm, ca, w, b, by, bx),
-                         by.numel() * rg.BLOCK_W),
-                        ("K5", tr.rows_gather_conv, tr.rows_gather_conv_plain,
-                         (fm, ca, w, b, rows), rows.numel() * ow)):
+                oh, ow = (hp - kh) // stride + 1, (wp - kw) // stride + 1
+                ys = torch.arange(oh + 1, dtype=torch.int32, device=dev).repeat_interleave(ow + 1)
+                xs = torch.arange(ow + 1, dtype=torch.int32, device=dev).repeat(oh + 1)
+                cases = [("K4", partial(rg.rulebook_gather_gemm, stride=stride),
+                          partial(rg.rulebook_gather_gemm_plain, stride=stride),
+                          (fm, ca, w, b, ys, xs), ys.numel())]
+                if stride == 1:
+                    wb = -(-ow // rg.BLOCK_W)
+                    by = torch.arange(oh, dtype=torch.int32, device=dev).repeat_interleave(wb)
+                    bx = torch.arange(wb, dtype=torch.int32, device=dev).repeat(oh)
+                    rows = torch.tensor([oh - 1, 0, oh // 2, oh - 1], dtype=torch.int32,
+                                        device=dev)
+                    cases += [("K3", rg.rulebook_gather_gemm_blocks,
+                               rg.rulebook_gather_gemm_blocks_plain, (fm, ca, w, b, by, bx),
+                               by.numel() * rg.BLOCK_W),
+                              ("K5", tr.rows_gather_conv, tr.rows_gather_conv_plain,
+                               (fm, ca, w, b, rows), rows.numel() * ow)]
+                for name, fn, plain, args, m in cases:
                     worst[name] = max(worst[name], kernel_err(
                         fn, plain, args, f"{name} at {what} ({tier})"))
                     if tier == "highest":
@@ -416,18 +452,21 @@ def gather_gemm_edges(dev) -> str:
                         plans.append(f"{name} {what}: {plan_text(plan)}")
     finally:
         set_matmul_precision("highest")
-    return (f"gather-gemm-edges: K3 and K5 == plain within {KERNEL_REL_TOL} * (1 + max|plain|) "
-            f"and bit-equal across two launches at 'highest' and 'default' at "
-            f"{len(GG_EDGES)} edge shapes; max abs err K3 {worst['K3']:.2e}, K5 "
+    return (f"gather-gemm-edges: K3, K4 and K5 == plain within {KERNEL_REL_TOL} * "
+            f"(1 + max|plain|) and bit-equal across two launches at 'highest' and 'default' "
+            f"at {len(GG_EDGES)} edge shapes (K3 and K5 at the {sum(e[-1] == 1 for e in GG_EDGES)} "
+            f"of stride 1); max abs err K3 {worst['K3']:.2e}, K4 {worst['K4']:.2e}, K5 "
             f"{worst['K5']:.2e}; plans: " + "; ".join(plans))
 
 
 def rulebook_case(name, spec, kernel, bias, prev_io, dev):
     """One rulebook kernel call at a layer's shapes, from its real active
-    mask: the kernel against its plain version, the times and the bound."""
+    mask: the kernel against its plain version at 'highest' and 'default'
+    ('highest' is restored whatever happens), the times and the bound."""
     from async_ev_cnn_torch.ops import conv as tconv
     from async_ev_cnn_torch.ops import masks as tmasks
     from async_ev_cnn_torch.ops import rulebook_gemm as rg
+    from async_ev_cnn_torch.ops.conv import set_matmul_precision
 
     active = tmasks.dilate_mask(prev_io.mask, spec.ksize, spec.stride, spec.pads)
     fm, ca = hwc_padded(spec, prev_io.featuremap), hwc_padded(spec, prev_io.conv_actfn)
@@ -454,9 +493,15 @@ def rulebook_case(name, spec, kernel, bias, prev_io, dev):
         kernel_fn, plain_fn = rg.rulebook_gather_gemm, rg.rulebook_gather_gemm_plain
         kwargs = {"stride": spec.stride}
         sites_per_box, box_w, cols_scale = 1, kw, spec.stride
-        plan = None  # K4: rulebook_kernel of csrc/rulebook.cu
+        plan = rg.gather_gemm_plan(ys.numel(), o, kh, kw, c)
     err = kernel_err(partial(kernel_fn, **kwargs), partial(plain_fn, **kwargs), args,
                      f"{name}: {kernel_fn.__name__}")
+    try:  # the 'default' tier: the kernel rounds its operands to TF32
+        set_matmul_precision("default")
+        default_err = kernel_err(partial(kernel_fn, **kwargs), partial(plain_fn, **kwargs),
+                                 args, f"{name}: {kernel_fn.__name__} at 'default'")
+    finally:
+        set_matmul_precision("highest")
     # the work this mask needs: the valid boxes' distinct input pixels of
     # both planes, the weights and bias, the coordinates, and the valid
     # boxes' outputs of both planes; 2 flops (one FFMA) per term
@@ -476,8 +521,8 @@ def rulebook_case(name, spec, kernel, bias, prev_io, dev):
     return {
         "layer": name, "k": int(args[4].numel()), "valid": n_valid,
         "active": int(n_active), "c": c, "o": o,
-        "err": err, "plan": plan_text(plan) if plan else "rulebook_kernel",
-        "ms": gg_device_ms(call, plan) if plan else device_ms(call, "rulebook_kernel"),
+        "err": err, "default_err": default_err, "plan": plan_text(plan),
+        "ms": gg_device_ms(call, plan),
         "split_ms": split_pass_ms(call, plan),
         "call_ms": time_ms(lambda: kernel_fn(*args, **kwargs), 50),
         "plain_ms": time_ms(lambda: plain_fn(*args, **kwargs), 5),
@@ -489,8 +534,8 @@ def rulebook_case(name, spec, kernel, bias, prev_io, dev):
 
 def rows_phase(dev, net, params, ios):
     """Phase 13: K5 at every conv layer's shapes from the real masks of the
-    clustered stream, then its path, then K3 and K5 at the 'default' tier
-    ('highest' is restored whatever happens).  Returns K5's entry of the
+    clustered stream, at 'highest' and at the 'default' tier ('highest' is
+    restored whatever happens), then its path.  Returns K5's entry of the
     kernels' JSON line."""
     from async_ev_cnn_torch.ops import conv as tconv
     from async_ev_cnn_torch.ops import masks as tmasks
@@ -502,7 +547,7 @@ def rows_phase(dev, net, params, ios):
     layers = net.event_layers
     convs = [(ld, ios[layers[j - 1].name]) for j, ld in enumerate(layers) if ld.kind == "conv"]
     cases = []
-    tier_err = {"K3": 0.0, "K5": 0.0}
+    tier_err = 0.0
     for ld, prev_io in convs:
         spec = ld.spec
         kernel, bias = params[f"w_{ld.name}"], params[f"b_{ld.name}"].float().contiguous()
@@ -514,16 +559,10 @@ def rows_phase(dev, net, params, ios):
         args_ = (fm, ca, w_hwio, bias, rows)
         err = kernel_err(tr.rows_gather_conv, tr.rows_gather_conv_plain, args_,
                          f"{ld.name}: K5")
-        # the 'default' tier: both kernels round their operands to TF32
-        by, bx, _, _ = tmasks.mask_to_block_coords(active, spec.block_capacity, rg.BLOCK_W)
-        try:
+        try:  # the 'default' tier: the kernel rounds its operands to TF32
             set_matmul_precision("default")
-            for name, fn, plain, a in (
-                    ("K3", rg.rulebook_gather_gemm_blocks, rg.rulebook_gather_gemm_blocks_plain,
-                     (fm, ca, w_hwio, bias, by, bx)),
-                    ("K5", tr.rows_gather_conv, tr.rows_gather_conv_plain, args_)):
-                tier_err[name] = max(tier_err[name], kernel_err(
-                    fn, plain, a, f"{ld.name}: {name} at 'default'"))
+            tier_err = max(tier_err, kernel_err(tr.rows_gather_conv, tr.rows_gather_conv_plain,
+                                                args_, f"{ld.name}: K5 at 'default'"))
         finally:
             set_matmul_precision("highest")
         hp, wp, c = fm.shape
@@ -549,7 +588,7 @@ def rows_phase(dev, net, params, ios):
             def call():
                 outs = [torch.empty((rows.numel(), ow, o), dtype=torch.float32, device=dev)
                         for _ in range(2)]
-                rg.launch_gather_gemm(*args_, None, *outs, ow, splits=splits)
+                rg.launch_gather_gemm(*args_, None, *outs, "rows", ow=ow, splits=splits)
                 return outs
             return call
 
@@ -603,9 +642,9 @@ def rows_phase(dev, net, params, ios):
               f"{r['bound'][0]:.5f} {r['bound'][1]}), err {r['err']:.2e}" for r in cases)
           + f"; path: the 'sparse_rows' update of one chunk through K5 at "
           f"{len(convs)} layers within {path_err:.2e} of rows_conv_pair, launches "
-          f"{path_launches}; at 'default' (operands rounded to TF32) K3 and K5 within "
-          f"the same tolerance of their plain versions at every layer, max abs err K3 "
-          f"{tier_err['K3']:.2e}, K5 {tier_err['K5']:.2e}", flush=True)
+          f"{path_launches}; at 'default' (operands rounded to TF32) K5 within the same "
+          f"tolerance of its plain version at every layer, max abs err {tier_err:.2e}",
+          flush=True)
     b_bytes = sum(r["bound"][0] for r in cases if r["bound"][1] == "bytes")
     b_ops = sum(r["bound"][0] for r in cases if r["bound"][1] == "operations")
     return {"name": "rows_gather_conv", "route": "cuda",
@@ -660,8 +699,15 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
     pool1_io = ios["pool1"]
     k4 = rulebook_case("conv2/stride2", k4_spec, params["w_conv2"], params["b_conv2"],
                        pool1_io, dev)
+    # the same sites with 64 output channels: the wide tile's 64 columns all
+    # live, where conv2's O = 32 masks half of them
+    w64 = torch.from_numpy(np.random.RandomState(5).randn(64, *params["w_conv2"].shape[1:])
+                           .astype(np.float32) * 0.05).to(dev)
+    k4_o64 = rulebook_case("conv2/stride2 O=64", k4_spec._replace(out_channels=64), w64,
+                           torch.zeros(64, dtype=torch.float32, device=dev), pool1_io, dev)
     print("rulebook-kernels: K3 == plain and K4 == plain within "
-          f"{KERNEL_REL_TOL} * (1 + max|plain|), and bit-equal across two launches, at "
+          f"{KERNEL_REL_TOL} * (1 + max|plain|) at 'highest' and 'default', and bit-equal "
+          "across two launches, at "
           f"chunk {WARM_CHUNKS} of the clustered stream; " + "; ".join(
               f"{r['layer']} K={r['k']} ({r['valid']} valid of {r['active']} active) "
               f"C={r['c']} O={r['o']} [{r['plan']}]: "
@@ -669,7 +715,8 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
               f"{r['call_ms']:.4f}, plain "
               f"{r['plain_ms']:.3f}, dense pair device {r['dense_pair_ms']:.4f}, bound "
               f"{r['bound'][0]:.5f} {r['bound'][1]}), "
-              f"err {r['err']:.2e}" for r in k3 + [k4]), flush=True)
+              f"err {r['err']:.2e} ('default' {r['default_err']:.2e})"
+              for r in k3 + [k4, k4_o64]), flush=True)
 
     # ---- 8. the incremental path ----------------------------------------------
     sp.scan(sp.init_state(), part(warm, 0, 4))  # warm-up: allocator, cuDNN set-up
@@ -818,12 +865,13 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
          "library_ms": None, "dense_pair_ms": total("dense_pair_ms"),
          "call_ms": total("call_ms")},
         {"name": "rulebook_gather_gemm", "route": "cuda",
-         "source": "async_ev_cnn_torch/csrc/rulebook.cu",
+         "source": "async_ev_cnn_torch/csrc/gather_gemm.cu",
          "replaces": "async_ev_cnn_tpu/ops/pallas_rulebook.py:97",
          "launches": k4_launches["rulebook_gather_gemm"], "max_abs_err": k4["err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound"][0],
          "bound_by": k4["bound"][1], "library_ms": None,
-         "dense_pair_ms": k4["dense_pair_ms"], "call_ms": k4["call_ms"]},
+         "dense_pair_ms": k4["dense_pair_ms"], "call_ms": k4["call_ms"],
+         "split_ms": k4["split_ms"], "plan": k4["plan"], "o64_ms": k4_o64["ms"]},
         k5,
     ]
 
@@ -1034,6 +1082,7 @@ def main() -> int:
     from async_ev_cnn_torch.ops import surface_scan as sc
     from async_ev_cnn_torch.ops.conv import set_matmul_precision
     from async_ev_cnn_torch.utils.config import config
+    from async_ev_cnn_torch.utils.equivalence import make_stream
     from async_ev_cnn_torch.utils.runner import pack_chunks
     from async_ev_cnn_torch.utils.serving import StreamingPipeline
 
@@ -1055,7 +1104,7 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("surface_scan", "rulebook", "gather_gemm", "fused_stem", "gather_copy")
+    sources = ("surface_scan", "gather_gemm", "fused_stem", "gather_copy")
     cuda_build.load_all(sources)  # one nvcc per source, started together
     parts = []
     for src in sources:
@@ -1085,36 +1134,71 @@ def main() -> int:
     require(bit_equal(k1, p1), "K1 (surface_scan_events) != its plain version at full width")
     require(bit_equal(k2, p2), "K2 (surface_scan_tsmap) != its plain version at full width")
     require(bit_equal(k1, k2), "K1 != K2 at full width")
+    # the winner lists of a clustered stream: most winners in a few tiles
+    cl_chunks = make_stream(np.random.RandomState(4), T_CHUNKS, CAPACITY, H, W, max_dt=15,
+                            clustered=True, cluster_radius=8, device=dev)
+    cpix, cdt, cd, _ = it.chunk_event_updates(1, H, W, prev, cl_chunks, LEAK)
+    cts_map, cd2, clt = it.chunk_ts_maps(1, H, W, prev, cl_chunks, LEAK)
+    k1c = sc.surface_scan_events(s0, cpix, cdt, cd, LEAK)
+    torch.cuda.synchronize()
+    require(bit_equal(k1c, sc.surface_scan_events_plain(s0, cpix, cdt, cd, LEAK)),
+            "K1 != its plain version on the clustered lists")
+    require(bit_equal(k1c, sc.surface_scan_tsmap(s0, cts_map, cd2, clt, LEAK)),
+            "K1 != K2 on the clustered lists")
     check_kernels_small(dev)
     err1 = float((k1 - p1).abs().max())
     err2 = float((k2 - p2).abs().max())
 
     t_len, e_len = pix.shape
     p_len = H * W
-    timings = {
-        "surface_scan_events": (
-            time_ms(lambda: sc.surface_scan_events(s0, pix, dt, d, LEAK), 50),
-            time_ms(lambda: sc.surface_scan_events_plain(s0, pix, dt, d, LEAK), 3),
-            # surfaces written, surface + winner lists + decrements read
-            bound_ms(4 * (t_len * p_len + p_len + 2 * t_len * e_len + t_len),
-                     4 * t_len * p_len + 6 * t_len * e_len),
-            err1,
-        ),
-        "surface_scan_tsmap": (
-            time_ms(lambda: sc.surface_scan_tsmap(s0, ts_map, d2, lt2, LEAK), 50),
-            time_ms(lambda: sc.surface_scan_tsmap_plain(s0, ts_map, d2, lt2, LEAK), 3),
-            # ts maps read and surfaces written, surface + scalars read
-            bound_ms(4 * (2 * t_len * p_len + p_len + 2 * t_len),
-                     10 * t_len * p_len),
-            err2,
-        ),
+    plan = sc.scan_events_plan(t_len, e_len, p_len)
+
+    def winners(q):  # winners of the busiest tile (a dispatch), and of all
+        q = q[q >= 0]
+        return int(torch.bincount(q // plan.tile).max()), int(q.numel())
+
+    def k1_call(lists):
+        return lambda: sc.surface_scan_events(s0, *lists, LEAK)
+
+    uniform, clustered = (pix, dt, d), (cpix, cdt, cd)
+    k1_info = {
+        "ms": device_ms(k1_call(uniform), K1_KERNELS, per_call=2),
+        "bin_ms": device_ms(k1_call(uniform), "bin_events_kernel"),
+        "clustered_ms": device_ms(k1_call(clustered), K1_KERNELS, per_call=2),
+        "clustered_bin_ms": device_ms(k1_call(clustered), "bin_events_kernel"),
+        "call_ms": time_ms(k1_call(uniform), 50),
+        "plain_ms": time_ms(lambda: sc.surface_scan_events_plain(s0, pix, dt, d, LEAK), 3),
+        "front_ms": device_ms(lambda: it.chunk_event_updates(1, H, W, prev, chunks, LEAK)),
+        "clustered_front_ms": device_ms(
+            lambda: it.chunk_event_updates(1, H, W, prev, cl_chunks, LEAK)),
+        "hot": {"uniform": winners(pix), "clustered": winners(cpix)},
+    }
+    # surfaces written, surface + winner lists + decrements read
+    k1_info["bound"] = bound_ms(4 * (t_len * p_len + p_len + 2 * t_len * e_len + t_len),
+                                4 * t_len * p_len + 6 * t_len * e_len)
+    k2_info = {
+        "ms": time_ms(lambda: sc.surface_scan_tsmap(s0, ts_map, d2, lt2, LEAK), 50),
+        "plain_ms": time_ms(lambda: sc.surface_scan_tsmap_plain(s0, ts_map, d2, lt2, LEAK), 3),
+        # ts maps read and surfaces written, surface + scalars read
+        "bound": bound_ms(4 * (2 * t_len * p_len + p_len + 2 * t_len), 10 * t_len * p_len),
     }
     print("kernels: K1 == plain, K2 == plain, K1 == K2 bit for bit at "
-          f"C=1 {H}x{W} T={t_len} E={e_len}; ragged 2-channel, large-dt and "
-          "iterated-integrate_step cases bit-equal; "
-          + "; ".join(f"{k} {v[0]:.4f} ms (plain {v[1]:.3f} ms, bound {v[2][0]:.4f} ms)"
-                      for k, v in timings.items()), flush=True)
-    del k1, k2, p1, p2, ts_map
+          f"C=1 {H}x{W} T={t_len} E={e_len} on the uniform and the clustered lists; ragged "
+          "2-channel (one across two windows), -1/P winners, large-dt and "
+          f"iterated-integrate_step cases bit-equal; K1 [tile {plan.tile}, window "
+          f"{plan.window}: {plan.n_tiles} tiles, {plan.n_windows} windows] device "
+          f"{k1_info['ms']:.4f} ms uniform (binning pass {k1_info['bin_ms']:.4f}), "
+          f"{k1_info['clustered_ms']:.4f} ms clustered (binning pass "
+          f"{k1_info['clustered_bin_ms']:.4f}); busiest tile "
+          f"{k1_info['hot']['uniform'][0]} of {k1_info['hot']['uniform'][1]} winners uniform, "
+          f"{k1_info['hot']['clustered'][0]} of {k1_info['hot']['clustered'][1]} clustered; "
+          f"a call {k1_info['call_ms']:.4f} ms, plain {k1_info['plain_ms']:.3f} ms, bound "
+          f"{k1_info['bound'][0]:.4f} ms {k1_info['bound'][1]}; chunk_event_updates (the "
+          f"winner dedup) device {k1_info['front_ms']:.4f} ms uniform, "
+          f"{k1_info['clustered_front_ms']:.4f} clustered; K2 {k2_info['ms']:.4f} ms (plain "
+          f"{k2_info['plain_ms']:.3f} ms, bound {k2_info['bound'][0]:.4f} "
+          f"ms); card {smi!r}", flush=True)
+    del k1c, p1, p2, ts_map, cts_map
 
     # ---- 4. the main path ------------------------------------------------------
     args = config(["-c", str(HERE / "configs" / "efcn_event.yml")])
@@ -1235,7 +1319,7 @@ def main() -> int:
     parts = [(e.key, e.count, e.self_device_time_total) for e in events
              if e.device_type == DeviceType.CPU]
     parts += [(e.key, e.count, e.self_device_time_total) for e in kernels
-              if "scan_events_kernel" in e.key or "scan_tsmap_kernel" in e.key]
+              if any(k in e.key for k in K1_KERNELS + ("scan_tsmap_kernel",))]
     top = sorted(parts, key=lambda e: -e[2])[:10]
     print(f"profile: one T={T_CHUNKS} dispatch under torch.profiler: wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall); device "
@@ -1248,17 +1332,20 @@ def main() -> int:
     stem_path_phase(model, c0, smi)
     tier_phase(dev, args, layer_defs, num_classes, num_bbox, c0, smi)
 
-    sources = {"surface_scan_events": "async_ev_cnn_tpu/ops/pallas_scan.py:273",
-               "surface_scan_tsmap": "async_ev_cnn_tpu/ops/pallas_scan.py:105"}
-    # each kernel's launches come from the run of its own path
-    launches = {"surface_scan_events": main_launches["surface_scan_events"],
-                "surface_scan_tsmap": tsmap_launches["surface_scan_tsmap"]}
+    scans = [
+        {"name": "surface_scan_events", "replaces": "async_ev_cnn_tpu/ops/pallas_scan.py:273",
+         # K1's launches come from the main path's run, K2's from its own path
+         "launches": main_launches["surface_scan_events"], "max_abs_err": err1,
+         **{k: v for k, v in k1_info.items() if k not in ("bound", "hot")}},
+        {"name": "surface_scan_tsmap", "replaces": "async_ev_cnn_tpu/ops/pallas_scan.py:105",
+         "launches": tsmap_launches["surface_scan_tsmap"], "max_abs_err": err2,
+         "ms": k2_info["ms"], "plain_ms": k2_info["plain_ms"]},
+    ]
     kernels = []
-    for k, (ms, plain_ms, (b_ms, b_by), err) in timings.items():
+    for entry, bound in zip(scans, (k1_info["bound"], k2_info["bound"])):
         kernels.append({
-            "name": k, "route": "cuda", "source": "async_ev_cnn_torch/csrc/surface_scan.cu",
-            "replaces": sources[k], "launches": launches[k], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "route": "cuda", "source": "async_ev_cnn_torch/csrc/surface_scan.cu", **entry,
+            "bound_ms": bound[0], "bound_by": bound[1],
             # no single PyTorch call computes the T-step clamped recurrence
             "library_ms": None,
         })

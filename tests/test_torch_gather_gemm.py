@@ -1,16 +1,17 @@
-"""The gather-GEMM shared by K3 and K5 (``csrc/gather_gemm.cu``): its launch
-plan, and the plain versions at the edges the kernel must take, held
+"""The gather-GEMM shared by K3, K4 and K5 (``csrc/gather_gemm.cu``): its
+launch plan, and the plain versions at the edges the kernel must take, held
 against the JAX package's Pallas kernels (interpret mode, as
 ``tests/test_pallas_rulebook.py`` and ``tests/test_pallas_rows.py`` run
-them on the CPU).
+them on the CPU; K4's edges are in ``tests/test_torch_rulebook.py``).
 
 * The plan (``ops/rulebook_gemm.gather_gemm_plan``) at every eFCN conv
-  layer's K3 and K5 shape and at ragged shapes: the tiles cover every
+  layer's K3 and K5 shape, at K4's conv2/stride-2 shape and at ragged
+  shapes: the tiles cover every
   output site and channel exactly once, the splits partition the
   ``kh*kw*C`` reduction, a block's shared memory fits the H100's 232,448
   bytes, and a split grid fills two blocks per SM as far as whole splits
   allow without passing them, or the splits are at their cap.  The tile
-  instances match the CUDA source's.
+  instances and the three site maps match the CUDA source's.
 * The plain versions against ``rulebook_gather_gemm_pallas_blocks`` (K3)
   and ``rows_gather_conv_pallas`` (K5) at O = 110 (no multiple of the
   channel tile), C = 1, ow = 7 (under 32) and K3 blocks at the plane's
@@ -61,7 +62,19 @@ def _efcn_shapes():
     return shapes
 
 
+def _k4_shape():
+    """(name, M, O, kh, kw, C) of K4 at conv2's shapes at stride 2, the
+    incremental path's stride-2 conv_step (M = that spec's capacity)."""
+    args = config(["-c", str(REPO / "configs" / "efcn_event.yml")])
+    layers, _ = build_layer_defs(args.yolo_cnn_layers, args.frame_h, args.frame_w,
+                                 args.leak, 0.1, args.yolo_cnn_padding, "sparse_pallas",
+                                 0.25)
+    s = next(ld.spec for ld in layers if ld.name == "conv2")._replace(stride=2)
+    return ("conv2/stride2/K4", s.capacity, s.out_shape[0], *s.ksize, s.in_shape[0])
+
+
 EFCN = _efcn_shapes()
+K4_CONV2 = _k4_shape()
 RAGGED = [
     ("one site", 1, 1, 1, 1, 1),
     ("C=3 O=5", 88, 5, 3, 3, 3),
@@ -87,7 +100,8 @@ def _split_runs(plan, k_total):
     return [(z * n // s * bk, min((z + 1) * n // s * bk, k_total)) for z in range(s)]
 
 
-@pytest.mark.parametrize("name,m,o,kh,kw,c", EFCN + RAGGED, ids=[s[0] for s in EFCN + RAGGED])
+@pytest.mark.parametrize("name,m,o,kh,kw,c", EFCN + [K4_CONV2] + RAGGED,
+                         ids=[s[0] for s in EFCN + [K4_CONV2] + RAGGED])
 def test_plan_covers_and_splits_exactly(name, m, o, kh, kw, c):
     plan = tg.gather_gemm_plan(m, o, kh, kw, c)
     assert plan.tile == ("narrow" if o <= 16 else "wide")
@@ -123,6 +137,17 @@ def test_plan_covers_and_splits_exactly(name, m, o, kh, kw, c):
         assert tiles * (plan.splits + 1) > tg.GATHER_GEMM_TARGET_BLOCKS or plan.splits == cap
 
 
+def test_k4_plan_at_conv2_stride2():
+    """K4 at conv2's shapes at stride 2: 560 sites, O = 32 on the wide tile
+    (half its 64 columns masked), 18 x 1 site tiles, the 144-term
+    reduction in five 32-deep slices, one split each."""
+    assert K4_CONV2[1:] == (560, 32, 3, 3, 16)
+    plan = tg.gather_gemm_plan(*K4_CONV2[1:])
+    assert plan.tile == "wide" and plan.block_k == 32 and plan.n_slices == 5
+    assert plan.splits == 5 and plan.grid == (18, 1, 5)
+    assert plan.workspace == (5, 2, 560, 32)
+
+
 @pytest.mark.parametrize("want,got", [(1, 1), (5, 5), (0, 1), (1000, 36)])
 def test_plan_split_override_is_clamped(want, got):
     """A forced split count stays within one split a slice."""
@@ -143,6 +168,20 @@ def test_plan_tiles_match_the_cuda_source():
         assert tuple(int(v) for v in found.groups()) == tg.GATHER_GEMM_TILES[tile]
     assert tg.gather_gemm_plan(8960, 16, 3, 3, 1).smem_bytes == 4 * 2 * (128 * 20 + 16 * 16)
     assert tg.gather_gemm_plan(112, 256, 3, 3, 128).smem_bytes == 4 * 2 * (64 * 36 + 32 * 64)
+    # the site maps, K4's per-site map among them, are the source's and its
+    # C entry launches an instance of each on both tiles
+    found = re.search(r"enum class SiteMap \{ kBlocks = (\d+), kRows = (\d+), kSites = (\d+) \};",
+                      src)
+    assert found is not None
+    assert dict(zip(("blocks", "rows", "sites"), map(int, found.groups()))) == tg.SITE_MAPS
+    for name, code in (("kBlocks", 0), ("kRows", 1), ("kSites", 2)):
+        assert f"case {code}:\n      return launch_map<SiteMap::{name}>" in src
+    for tile in ("Narrow", "Wide"):
+        for tier in ("true", "false"):
+            assert f"launch<{tile}, MAP, {tier}>" in src
+    # K4's stride reaches the kernel only through the once-per-block corner
+    assert src.count("g.stride") == 2
+    assert tg.gather_gemm_plan(*K4_CONV2[1:]).smem_bytes == 4 * 2 * (64 * 36 + 32 * 64)
 
 
 def _t(a):

@@ -10,6 +10,9 @@ themselves run only on the card, where chip_smoke.py holds them against
 these plain versions.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -151,6 +154,71 @@ def test_plain_scans_bit_exact_vs_pallas(rng, channels, shape):
                  want_t)
     # both engines agree with each other too
     _assert_bits(want_e, want_t)
+
+
+@pytest.mark.parametrize("t,p", [(1, 1), (10, 442), (64, 128), (66, 300), (200, 35840),
+                                 (129, 71680)])
+def test_scan_events_plan_tiles_and_windows(t, p):
+    """K1's plan: every pixel in exactly one tile (the last one ragged and
+    never empty), the windows partition T, and the workspace holds the
+    binned entries and the bucket offsets."""
+    plan = tscan.scan_events_plan(t, 12, p)
+    cover = np.zeros(p, np.int32)
+    for j in range(plan.n_tiles):
+        cover[j * plan.tile:(j + 1) * plan.tile] += 1
+    assert (cover == 1).all() and (plan.n_tiles - 1) * plan.tile < p
+    runs = [(w * plan.window, min((w + 1) * plan.window, t)) for w in range(plan.n_windows)]
+    assert runs[0][0] == 0 and runs[-1][1] == t and all(a < b for a, b in runs)
+    assert all(runs[i][1] == runs[i + 1][0] for i in range(len(runs) - 1))
+    assert plan.bin_smem_bytes == 4 * (plan.n_tiles + 1) <= tscan.SMEM_LIMIT_BYTES
+    assert plan.workspace == 2 * t * 12 + t * (plan.n_tiles + 1)
+
+
+def test_scan_events_plan_matches_the_cuda_source():
+    """The plan's tile and window are the kernel's: surface_scan.cu refuses
+    a launch whose tile, window, tile count or binning shared memory
+    disagrees with its own."""
+    src = (Path(__file__).resolve().parent.parent / "async_ev_cnn_torch" / "csrc"
+           / "surface_scan.cu").read_text()
+    for name, value in (("kTile", tscan.SCAN_TILE), ("kWindow", tscan.SCAN_WINDOW)):
+        found = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert found is not None and int(found.group(1)) == value, name
+    assert "__shared__ float contrib[kWindow][kTile];" in src
+    plan = tscan.scan_events_plan(200, 256, 160 * 224)
+    assert (plan.n_tiles, plan.n_windows) == (280, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tscan.scan_events_plan(2, 4, 128 * 60_000)
+
+
+def test_plain_scan_matches_pallas_across_windows_and_ragged_tiles(rng):
+    """The events scan's plain version against the JAX Pallas kernel
+    (interpret mode) at T = 66 (two windows, the second ragged), 2
+    channels of 13x17 (P = 442, the last tile ragged), with winners
+    replaced by -1 and by P (out of range: no event in either)."""
+    h, w, t, channels, leak = 13, 17, 66, 2, 3e-3
+    p = channels * h * w
+    assert t % tscan.SCAN_WINDOW and p % tscan.SCAN_TILE
+    arrays = _chunk_arrays(rng, t, 12, h, w)
+    tc, jc = _both(arrays)
+    s0 = _surface(rng, channels, h, w)
+    pix, dt, d, _ = tint.chunk_event_updates(channels, h, w, 5, tc, leak)
+    pix = pix.clone()
+    pix[::3, 0] = -1
+    pix[1::3, 1] = p
+    pix_np = pix.numpy()
+    assert (pix_np == p).any() and (pix_np >= 0).sum() > t
+    pr = np.where(pix_np >= 0, pix_np // 128, -1).astype(np.int32)
+    pc = np.where(pix_np >= 0, pix_np % 128, 0).astype(np.int32)
+    want = surface_scan_events_pallas(jnp.asarray(s0), jnp.asarray(pr), jnp.asarray(pc),
+                                      jnp.asarray(dt.numpy()), jnp.asarray(d.numpy()), leak,
+                                      interpret=True)
+    _assert_bits(tscan.surface_scan_events(torch.from_numpy(s0), pix, dt, d, leak), want)
+    # and against the ts-map engine where no winner was replaced
+    pix2, dt2, d2, _ = tint.chunk_event_updates(channels, h, w, 5, tc, leak)
+    ts_map, d3, lt3 = tint.chunk_ts_maps(channels, h, w, 5, tc, leak)
+    _assert_bits(tscan.surface_scan_events_plain(torch.from_numpy(s0), pix2, dt2, d2, leak),
+                 tscan.surface_scan_tsmap_plain(torch.from_numpy(s0), ts_map, d3, lt3, leak)
+                 .numpy())
 
 
 def test_integrate_parallel_engines_match_sequential_chain(rng):

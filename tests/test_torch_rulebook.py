@@ -200,7 +200,7 @@ def test_k3_plain_matches_pallas_blocks(rng):
                                        stride=2)
 
 
-@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("stride", [1, 2, 3])
 def test_k4_plain_matches_pallas_sites(rng, stride):
     hp, wp, c, o, kh, kw = 13, 17, 3, 6, 3, 3
     fm, ca, kern, bias = _hwc_inputs(rng, hp, wp, c, o, kh, kw)
@@ -214,6 +214,44 @@ def test_k4_plain_matches_pallas_sites(rng, stride):
     got = tg.rulebook_gather_gemm(*(_t(a) for a in (fm, ca, kern, bias, ys, xs)),
                                   stride=stride)
     for g, w_ in zip(got, want):
+        _close(g, w_)
+
+
+# (what, hp, wp, C, O, kh, kw, stride, K): K4's edges on the card's
+# gather-GEMM (csrc/gather_gemm.cu, per-site map)
+K4_EDGES = [
+    ("past the last row and column", 11, 14, 4, 8, 3, 3, 2, 40),
+    ("stride 3 past the edges", 13, 16, 3, 5, 3, 3, 3, 30),
+    ("K = 1", 9, 9, 5, 6, 3, 3, 2, 1),
+    ("K past a tile", 17, 19, 4, 7, 3, 3, 2, 33),
+    ("C = 1", 12, 15, 1, 16, 3, 3, 2, 21),
+    ("O = 110", 7, 9, 24, 110, 1, 1, 2, 17),
+]
+
+
+@pytest.mark.parametrize("what,hp,wp,c,o,kh,kw,stride,k", K4_EDGES,
+                         ids=[e[0] for e in K4_EDGES])
+def test_k4_plain_matches_pallas_sites_at_the_edges(rng, what, hp, wp, c, o, kh, kw,
+                                                    stride, k):
+    """Sites up to one past the last output row and column, so boxes run
+    past the plane's bottom and right edges: the port reads zeros there,
+    and the JAX kernel gets the planes padded with zeros to hold every box
+    (as the JAX package's callers pad them)."""
+    fm, ca, kern, bias = _hwc_inputs(rng, hp, wp, c, o, kh, kw)
+    oh, ow = (hp - kh) // stride + 1, (wp - kw) // stride + 1
+    ys = rng.randint(0, oh + 1, k).astype(np.int32)
+    xs = rng.randint(0, ow + 1, k).astype(np.int32)
+    ys[0], xs[-1] = oh, ow  # one box past the bottom, one past the right
+    pad = ((0, kh + stride), (0, kw + stride), (0, 0))
+    want = rulebook_gather_gemm_pallas(
+        *(jnp.asarray(a) for a in (np.pad(fm, pad), np.pad(ca, pad), kern, bias, ys, xs)),
+        stride=stride, tile=8, interpret=True)
+    before = dict(tg.LAUNCHES)
+    got = tg.rulebook_gather_gemm(*(_t(a) for a in (fm, ca, kern, bias, ys, xs)),
+                                  stride=stride)
+    assert tg.LAUNCHES == before  # CPU tensors: the plain version, no launch
+    for g, w_ in zip(got, want):
+        assert tuple(g.shape) == w_.shape == (k, o)
         _close(g, w_)
 
 
