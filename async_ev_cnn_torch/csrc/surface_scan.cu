@@ -35,7 +35,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;    // scan_tsmap_kernel: pixels per block, one per thread
+constexpr int kTsTile = 32;      // scan_tsmap_kernel: pixels per tile (block), one per thread
+constexpr int kTsWindow = 32;    // scan_tsmap_kernel: chunks prefetched per window
 constexpr int kTile = 128;       // scan_events_kernel: pixels per tile (block), one per thread
 constexpr int kWindow = 64;      // scan_events_kernel: chunks per window
 constexpr int kBinThreads = 256; // bin_events_kernel: threads per chunk
@@ -212,47 +213,73 @@ scan_events_kernel(const float* __restrict__ s0, const int2* __restrict__ entrie
   }
 }
 
-// Replaces async_ev_cnn_tpu/ops/pallas_scan.py::surface_scan_pallas
-// (_scan_kernel).  One thread per pixel walks T, reading its pixel of each
-// chunk's int32 ts map (coalesced across the warp) and writing its
-// surface.  The per-chunk scalars d and last_ts are staged in shared
-// memory kThreads chunks at a time, so every thread reads them from there.
-//
-// Bound: T*P*4 B of ts maps read plus T*P*4 B of surfaces written.
-__global__ void __launch_bounds__(kThreads)
+// K2 replaces async_ev_cnn_tpu/ops/pallas_scan.py::surface_scan_pallas
+// (_scan_kernel).  Bound: T*P*4 B of ts maps read plus T*P*4 B of surfaces
+// written, a handful of float ops between them.  One thread a pixel walks
+// T, and a pixel's chunks are a serial chain, so the card's parallelism is
+// the P threads alone (35,840 at the eFCN's width, 271 an SM): to keep
+// enough bytes in flight (about 3.35 TB/s x 1 us over 132 SMs, 25 KB an
+// SM) each thread prefetches its ts values kTsWindow chunks ahead into
+// registers, one window's loads issued before the window before it is
+// walked (32 x 4 B a thread, 35 KB an SM).  A block is one warp of
+// kTsTile pixels, so the eFCN's 1,120 blocks spread 8 or 9 to an SM, all
+// resident at once.  Each lane also loads one chunk's d and last_ts of the
+// next window, and every step takes them from the lane that holds them by
+// a shuffle: no shared memory, no barrier.  Loads and stores are
+// coalesced across the warp, and a pixel past P is never written.
+__global__ void __launch_bounds__(kTsTile)
 scan_tsmap_kernel(const float* __restrict__ s0, const int32_t* __restrict__ ts_map,
                   const float* __restrict__ d, const int32_t* __restrict__ last_ts,
                   float* __restrict__ out, int t_len, int p_len, float leak) {
-  __shared__ float d_s[kThreads];
-  __shared__ int32_t lt_s[kThreads];
-  const int p = blockIdx.x * kThreads + threadIdx.x;
+  static_assert(kTsTile == 32 && kTsWindow == 32, "a warp a tile, a lane a chunk's scalars");
+  const int lane = threadIdx.x;
+  const int p = blockIdx.x * kTsTile + lane;
   const bool live = p < p_len;
+  const int32_t* col = ts_map + (live ? p : p_len - 1);  // a dead lane reads a live column
   float s = live ? s0[p] : 0.0f;
-  for (int t0 = 0; t0 < t_len; t0 += kThreads) {
-    const int n = min(kThreads, t_len - t0);
-    if (threadIdx.x < n) {
-      d_s[threadIdx.x] = d[t0 + threadIdx.x];
-      lt_s[threadIdx.x] = last_ts[t0 + threadIdx.x];
+  int32_t cur[kTsWindow], nxt[kTsWindow];
+  float d_cur = 0.0f, d_nxt = 0.0f;
+  int32_t lt_cur = 0, lt_nxt = 0;
+  // window 0
+#pragma unroll
+  for (int k = 0; k < kTsWindow; ++k)
+    cur[k] = k < t_len ? __ldg(col + static_cast<size_t>(k) * p_len) : 0;
+  if (lane < t_len) {
+    d_cur = __ldg(d + lane);
+    lt_cur = __ldg(last_ts + lane);
+  }
+  for (int t0 = 0; t0 < t_len; t0 += kTsWindow) {
+    const int t1 = t0 + kTsWindow;
+    // the next window's loads, in flight while this one is walked
+#pragma unroll
+    for (int k = 0; k < kTsWindow; ++k)
+      nxt[k] = t1 + k < t_len ? __ldg(col + static_cast<size_t>(t1 + k) * p_len) : 0;
+    if (t1 + lane < t_len) {
+      d_nxt = __ldg(d + t1 + lane);
+      lt_nxt = __ldg(last_ts + t1 + lane);
     }
-    __syncthreads();
-    if (live) {
-      for (int i = 0; i < n; ++i) {
-        const size_t at = static_cast<size_t>(t0 + i) * p_len + p;
-        const int32_t tm = ts_map[at];
-        const float s1 = clamp0(__fsub_rn(s, d_s[i]));
+    const int n = min(kTsWindow, t_len - t0);
+#pragma unroll
+    for (int k = 0; k < kTsWindow; ++k) {
+      if (k < n) {  // uniform across the warp
+        const float dk = __shfl_sync(0xffffffffu, d_cur, k);
+        const int32_t ltk = __shfl_sync(0xffffffffu, lt_cur, k);
+        const int32_t tm = cur[k];
+        const float s1 = clamp0(__fsub_rn(s, dk));
         // int32 difference with wraparound, as in the JAX package
-        const int32_t dt = static_cast<int32_t>(
-            static_cast<uint32_t>(lt_s[i]) - static_cast<uint32_t>(tm));
+        const int32_t dt =
+            static_cast<int32_t>(static_cast<uint32_t>(ltk) - static_cast<uint32_t>(tm));
         const float a = tm > kTsSentinel ? contribution(dt, leak) : 0.0f;
         s = clamp0(__fadd_rn(s1, a));
-        out[at] = s;
+        if (live) out[static_cast<size_t>(t0 + k) * p_len + p] = s;
       }
     }
-    __syncthreads();  // d_s / lt_s are refilled for the next chunk block
+#pragma unroll
+    for (int k = 0; k < kTsWindow; ++k) cur[k] = nxt[k];
+    d_cur = d_nxt;
+    lt_cur = lt_nxt;
   }
 }
-
-int blocks_for(int p_len) { return (p_len + kThreads - 1) / kThreads; }
 
 }  // namespace
 
@@ -289,11 +316,15 @@ extern "C" int surface_scan_events(const float* s0, const int32_t* pix,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int surface_scan_tsmap(const float* s0, const int32_t* ts_map,
-                                  const float* d, const int32_t* last_ts,
-                                  float* out, int t_len, int p_len, float leak,
+// K2: one launch.  tile, window and n_tiles come from the plan
+// (ops/surface_scan.scan_tsmap_plan) and must be this source's.
+extern "C" int surface_scan_tsmap(const float* s0, const int32_t* ts_map, const float* d,
+                                  const int32_t* last_ts, float* out, int t_len, int p_len,
+                                  float leak, int tile, int window, int n_tiles,
                                   cudaStream_t stream) {
-  scan_tsmap_kernel<<<blocks_for(p_len), kThreads, 0, stream>>>(
-      s0, ts_map, d, last_ts, out, t_len, p_len, leak);
+  if (tile != kTsTile || window != kTsWindow || n_tiles != (p_len + kTsTile - 1) / kTsTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  scan_tsmap_kernel<<<n_tiles, kTsTile, 0, stream>>>(s0, ts_map, d, last_ts, out, t_len,
+                                                     p_len, leak);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,12 +6,17 @@ keeps as a measured alternative to its library stem (a negative result on
 its TPU).  The port keeps it the same way: no network path runs it; it is
 timed beside the library stem (the direct conv1 -> pool1 and
 :func:`async_ev_cnn_torch.ops.stem.fused_conv_pool`).  The hand-written
-kernel is ``csrc/fused_stem.cu``; the plain version runs the same separate
-float32 multiplies and adds in the same order, so the two agree bit for
-bit.  The activation is ``where(x > 0, x, alpha * x)`` here, as in the TPU
-kernel (equal to the network's ``max(x, alpha * x)`` for 0 < alpha < 1).
-A wrapper runs its plain version for tensors on the CPU and the kernel for
-tensors on the card, or raises.  ``LAUNCHES`` counts kernel launches.
+kernel is ``csrc/fused_stem.cu``.  The plain version runs the TPU kernel's
+float32 operations in its order: ``acc = b``, then ``acc + x * w`` tap by
+tap, product and sum rounded apart, the activation, the 2x2 max.  The
+kernel takes the same taps in the same order but rounds each tap once (a
+fused multiply-add) and, for ``0 <= alpha <= 1``, activates after the max
+(the activation is monotone there), so the two agree within a few float32
+ulps, not bit for bit; ``chip_smoke.py`` states the tolerance.  The
+activation is ``where(x > 0, x, alpha * x)`` here, as in the TPU kernel
+(equal to the network's ``max(x, alpha * x)`` for 0 <= alpha <= 1).  A wrapper runs its
+plain version for tensors on the CPU and the kernel for tensors on the
+card, or raises.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ from async_ev_cnn_torch.ops.numerics import float32_scalar
 
 #: kernel launches since the counts were last reset
 LAUNCHES = {"fused_stem": 0}
+
+#: output channels the kernel's __constant__ block holds (csrc/fused_stem.cu)
+STEM_MAX_O = 64
 
 
 def reset_launches() -> None:
@@ -64,6 +72,9 @@ def fused_stem(x, w_taps, bias, alpha: float = 0.1):
     if x.dim() != 3 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"the fused stem takes x [T, H, W] with even H and W "
                          f"(one input channel), got {tuple(x.shape)}")
+    if w_taps.dim() != 2 or not 1 <= w_taps.shape[1] <= STEM_MAX_O:
+        raise ValueError(f"the fused stem takes w_taps [9, O] with 1 <= O <= {STEM_MAX_O} "
+                         f"(its kernel's constant block), got {tuple(w_taps.shape)}")
     if _on_cpu(x, w_taps, bias):
         return fused_stem_plain(x, w_taps, bias, alpha)
     dev = x.device
@@ -75,8 +86,6 @@ def fused_stem(x, w_taps, bias, alpha: float = 0.1):
     if w_taps.shape[0] != 9 or bias.shape[0] != o:
         raise ValueError(f"w_taps must be [9, O] and bias [O], got "
                          f"{tuple(w_taps.shape)} and {tuple(bias.shape)}")
-    if t > 65535:
-        raise ValueError(f"at most 65535 frames a call, got {t}")
     out = torch.empty((t, o, h // 2, w // 2), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out  # nothing to compute: no launch, nothing counted

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from async_ev_cnn_torch.ops.conv import conv_pads
+
 
 def composite_argmax(surface_w: torch.Tensor, actfn_w: torch.Tensor):
     """Tie-broken argmax over the last axis.
@@ -36,15 +38,37 @@ def composite_argmax(surface_w: torch.Tensor, actfn_w: torch.Tensor):
     return idx, not_argmin
 
 
+def _pool_identity(dtype: torch.dtype):
+    """The max's identity for ``dtype``, the value the JAX op pads with:
+    False, -inf, or the integer type's least value."""
+    if dtype == torch.bool:
+        return False
+    if dtype.is_floating_point:
+        return float("-inf")
+    return torch.iinfo(dtype).min
+
+
 def maxpool_dense(
     x: torch.Tensor, ksize: tuple[int, int], stride: int, padding: str = "VALID"
 ) -> torch.Tensor:
-    """Dense VALID max-pool of a float ``[C, H, W]`` or ``[N, C, H, W]``."""
-    if padding != "VALID":
-        raise NotImplementedError(
-            f"maxpool_dense supports VALID padding only, got {padding!r}")
+    """Dense max-pool of ``[C, H, W]`` or ``[N, C, H, W]``, float, integer
+    or bool (the window-wise OR), with 'VALID' or TF 'SAME' padding.
+
+    SAME pads with the max's identity, as the JAX op's ``reduce_window``
+    does.  Floats pool by ``F.max_pool2d`` (cuDNN on the card); integers
+    and bool, which it does not take, by a max over unfolded windows."""
+    kh, kw = ksize
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
-    out = F.max_pool2d(x, tuple(ksize), stride)
+    (pt, pb), (pl, pr) = conv_pads(x.shape[-2], x.shape[-1], kh, kw, stride, padding)
+    if pt or pb or pl or pr:
+        padded = x.new_full((*x.shape[:-2], x.shape[-2] + pt + pb, x.shape[-1] + pl + pr),
+                            _pool_identity(x.dtype))
+        padded[..., pt:pt + x.shape[-2], pl:pl + x.shape[-1]] = x
+        x = padded
+    if x.is_floating_point():
+        out = F.max_pool2d(x, (kh, kw), stride)
+    else:
+        out = x.unfold(-2, kh, stride).unfold(-2, kw, stride).amax((-2, -1))
     return out[0] if squeeze else out

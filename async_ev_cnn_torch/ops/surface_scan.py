@@ -14,10 +14,11 @@ PyTorch version of the same arithmetic:
 
 Both are bit-identical to iterating ``ops.integrate.integrate_step``.  K1
 is two launches, a binning pass and the scan, cut by
-:func:`scan_events_plan`.  A wrapper runs its plain version for tensors on
-the CPU, and the kernel for tensors on the card — or raises; it never falls
-back.  ``LAUNCHES`` counts wrapper calls that launched their kernels, so a
-run can show that it went through the kernels.
+:func:`scan_events_plan`; K2 one, cut by :func:`scan_tsmap_plan`.  A
+wrapper runs its plain version for tensors on the CPU, and the kernel for
+tensors on the card — or raises; it never falls back.  ``LAUNCHES`` counts
+wrapper calls that launched their kernels, so a run can show that it went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -44,6 +45,10 @@ TS_SENTINEL_VALUE = -(2**31) + 1
 # thread a pixel), chunks a window
 SCAN_TILE = 128
 SCAN_WINDOW = 64
+# K2's: pixels a tile (one warp, a thread a pixel), chunks a window (the
+# ts values a thread prefetches into registers)
+TSMAP_TILE = 32
+TSMAP_WINDOW = 32
 #: shared memory one block of the H100 may use
 SMEM_LIMIT_BYTES = 232_448
 
@@ -132,6 +137,28 @@ def scan_events_plan(t: int, e: int, p: int) -> ScanEventsPlan:
                           2 * t * e + t * (n_tiles + 1))
 
 
+class ScanTsmapPlan(NamedTuple):
+    """How one K2 call is cut: ``n_tiles`` tiles of ``tile`` pixels (the
+    last one ragged), each a one-warp block walking T in ``n_windows``
+    windows of ``window`` chunks (the last one ragged), the next window's
+    ts values loaded while this one is walked."""
+    tile: int
+    window: int
+    n_tiles: int
+    n_windows: int
+
+
+def scan_tsmap_plan(t: int, p: int) -> ScanTsmapPlan:
+    """K2's launch plan for ``T = t`` chunks over ``P = p`` pixels.  A tile
+    is one warp of 32 pixels, so the eFCN's 35,840 pixels make 1,120
+    blocks, 8 or 9 an SM of the H100's 132, all resident at once (one more
+    or less an SM is an eighth of its work, where 128-pixel tiles gave 2 or
+    3).  A window is 32 chunks: 32 ts values a thread in flight, about 35
+    KB an SM, above the 25 KB that 3.35 TB/s at a microsecond's latency
+    needs; a lane holds one chunk's scalars."""
+    return ScanTsmapPlan(TSMAP_TILE, TSMAP_WINDOW, -(-p // TSMAP_TILE), -(-t // TSMAP_WINDOW))
+
+
 def _launch(fn_name: str, device, *args) -> None:
     cuda_build.launch("surface_scan", fn_name, device, *args)
     LAUNCHES[fn_name] += 1
@@ -210,7 +237,9 @@ def surface_scan_tsmap(surface, ts_map, d, last_ts, leak: float) -> torch.Tensor
     out = torch.empty((t, *surface.shape), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out  # nothing to compute: no launch, nothing counted
+    plan = scan_tsmap_plan(t, surface.numel())
     _launch("surface_scan_tsmap", dev, _ptr(surface), _ptr(ts_map), _ptr(d),
             _ptr(last_ts), _ptr(out), ctypes.c_int(t),
-            ctypes.c_int(surface.numel()), ctypes.c_float(np.float32(leak)))
+            ctypes.c_int(surface.numel()), ctypes.c_float(np.float32(leak)),
+            *(ctypes.c_int(v) for v in (plan.tile, plan.window, plan.n_tiles)))
     return out

@@ -5,21 +5,27 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --compare PARENT`` instead times K2 and K6 (device
+time, and K6's SASS count) of the checkout at PARENT against this one's on
+one card, in the order parent, this, this, parent.
+
 Phases, one line each on standard output:
 
 1. environment: the card, its power limit, torch/CUDA versions, TF32 off;
 2. build: every kernel source of async_ev_cnn_torch/csrc with nvcc, one
    nvcc per source, all started together, with ptxas's registers and
-   spills of each;
+   spills of each, and K6's SASS instructions a pooled pixel and channel
+   (cuobjdump);
 3. kernels: each kernel against its plain PyTorch version bit for bit at
    the eFCN's full width (160x224, T=200 chunks of 256 events), against
    each other, on the winner lists of a clustered stream (make_stream,
    radius 8), on 2-channel ragged cases (one across two of K1's windows),
    with winners replaced by -1 and by P, on a large-dt case, and against
-   iterating integrate_step; with K1's device time (its binning pass and
-   scan) on the uniform and the clustered lists, the binning pass's
-   share, the device time of the winner dedup (chunk_event_updates)
-   beside it, K2's time and the memory bounds;
+   iterating integrate_step, and K2 across two of its windows and tiles;
+   with K1's device time (its binning pass and scan) on the uniform and
+   the clustered lists, the binning pass's share, the device time of the
+   winner dedup (chunk_event_updates) beside it, K2's plan and device
+   time, and the memory bounds;
 4. path: the eFCN from configs/efcn_event.yml with seeded random weights,
    served by StreamingPipeline (plain wire, T=200 chunks per dispatch,
    batched head.decode, the default 'events' engine: K1) for 16
@@ -28,7 +34,9 @@ Phases, one line each on standard output:
    launch counts are set to 0 just before each path and read just after
    it, and each kernel's count is its own path's;
 5. card against CPU: one T=16 dispatch by the same port on the card and on
-   the CPU: surfaces bit-equal, grid outputs within 1e-4;
+   the CPU: surfaces bit-equal, grid outputs within 1e-4; then
+   maxpool_dense on int32, bool and float32 maps at 'VALID' and 'SAME',
+   equal to the same calls on the CPU;
 6. profile: one more dispatch under torch.profiler, with the device-busy
    share of its wall time and the kernels that take the most device time.
 
@@ -83,9 +91,12 @@ paths, and the precision options:
     (kernel_rows_conv_pair) at every layer, within the same tolerance
     of rows_conv_pair (counts set to 0 just before, read just after);
 14. K6 (fused_stem) on the T=200 surfaces of a full-width dispatch (its
-    path: one call, counted), bit for bit against its plain version and
-    within 1e-5 of fused_conv_pool and of the direct 'full' conv1 -> pool1
-    at 'highest'; the times of all four;
+    path: one call, counted), within K6_TOL * (1 + max |plain|) of its
+    plain version and bit-equal across two launches, within 1e-5 of
+    fused_conv_pool and of the direct 'full' conv1 -> pool1 at 'highest';
+    the same at its edge shapes (K6_EDGES: T = 1, H/2 not a multiple of
+    the band, W/2 odd, O = 1 and 64, alpha < 0 and > 1, the library stems
+    where alpha <= 1); the device times of all four;
 15. K7 (gather_copy): each shape and kh against its plain version at grid
     4, 2 copies, bit for bit; then its path, the slope table of all 12
     (shape, kh) rows (counted): µs a copy, µs a row, GB/s and its share of
@@ -101,13 +112,14 @@ paths, and the precision options:
     'highest' is restored whatever happens.
 
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
-result line.  K2's ``ms`` is a CUDA-event time over many calls; K1's,
-K3's, K4's and K5's ``ms`` are their kernels' device time per call from
+result line.  K1's to K6's ``ms`` are their device time per call from
 torch.profiler (K1's: the binning pass and the scan; K3's, K4's and K5's:
 the gather-GEMM kernel plus, where the plan splits the reduction, its
-split pass; ``call_ms`` beside it is the event-timed wall time of a
-wrapper call, which the host's launch overhead sets at these sizes), and
-``dense_pair_ms`` the device time of the dense conv pair.  K3's and K5's
+split pass; K6's: the kernel and the two copies of its taps into constant
+memory; ``call_ms`` beside it is the event-timed wall time of a wrapper
+call, which the host's launch overhead sets at these sizes), K7's a
+CUDA-event time, and ``dense_pair_ms`` the device time of the dense conv
+pair.  K3's and K5's
 times and bounds are the sums over their seven layer calls of one
 chunk.  Any failure raises and exits non-zero without a
 result line; without a CUDA device, or without the package beside it, it
@@ -146,6 +158,8 @@ KERNEL_REL_TOL = 1e-5
 GG_KERNELS = ("gather_gemm_kernel", "split_sum_kernel")
 # the kernels of one K1 call (csrc/surface_scan.cu): the binning pass, the scan
 K1_KERNELS = ("bin_events_kernel", "scan_events_kernel")
+# K6's instance on the eFCN (csrc/fused_stem.cu): O = 16, pool then activate
+K6_HOT_INSTANCE = "fused_stem_kernelILi16ELb1E"
 # the gather-GEMM's edge shapes: (what, hp, wp, C, O, kh, kw, float offset
 # of the planes from a 16-byte boundary, stride).  Stride 1 runs K3, K5 and
 # K4; another stride runs K4 alone, its sites one past the last output row
@@ -164,6 +178,28 @@ GG_EDGES = (
     ("stride 3 off 16 B", 10, 13, 8, 40, 3, 3, 1, 3),
 )
 TIER_GATE_STEPS = 200
+# K6 against its plain version: |kernel - plain| <= K6_TOL * (1 + max|plain|).
+# The kernel rounds each of its 9 taps once (an FMA) where the plain
+# version rounds product and sum apart, so a conv value moves by at most
+# half an ulp of each product and of each partial sum: 19 half-ulps of the
+# largest term of the chain, about 1.1e-6 of it, and far less in practice
+# (the roundings are independent); the 2x2 max and the activation add no
+# error of their own (monotone for 0 <= alpha <= 1; the same order
+# otherwise).
+K6_TOL = 1e-6
+# K6's edge shapes: (what, T, H, W, O, alpha).  The band is 8 pooled rows
+# and a thread takes 2x2 pooled pixels; O = 16 is the unrolled instance,
+# every other O the generic one, and alpha outside [0, 1] the
+# activate-then-pool one.
+K6_EDGES = (
+    ("T=1", 1, 160, 224, 16, 0.1),
+    ("O=64 full width", 4, 160, 224, 64, 0.1),
+    ("H/2=9 W/2=7 O=1", 3, 18, 14, 1, 0.1),
+    ("H/2=11 W/2=15 O=64", 2, 22, 30, 64, 0.1),
+    ("H/2=10 W/2=13 O=16 alpha<0", 2, 20, 26, 16, -0.2),
+    ("H/2=5 W/2=1 O=7 alpha<0", 3, 10, 2, 7, -0.2),
+    ("H/2=10 W/2=13 O=16 alpha>1", 2, 20, 26, 16, 1.5),
+)
 
 
 def require(cond, what: str) -> None:
@@ -289,6 +325,62 @@ def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def sass_loop_cost(lib_path, kernel_key: str):
+    """SASS instructions a pooled pixel and channel in the fused stem's hot
+    loop, from ``cuobjdump -sass`` of the library at ``lib_path``: in the
+    first kernel whose mangled name holds ``kernel_key``, the smallest loop
+    (a backward branch and its target) that holds at least 36 FFMA or FADD,
+    its length x 36 / its FFMA + FADD (a pooled pixel and channel is 4 conv
+    values of 9 multiply-adds).  Returns (kernel, loop length, FFMA + FADD,
+    instructions a pooled pixel and channel), or None without cuobjdump."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if kernel_key not in name:
+            continue
+        instrs, labels, pending = [], {}, []
+        for line in chunk.splitlines()[1:]:
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                pending.append(label.group(1))
+                continue
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if ins:
+                addr = int(ins.group(1), 16)
+                labels.update((lab, addr) for lab in pending)
+                pending = []
+                instrs.append((addr, ins.group(2)))
+
+        def opcode(ins):
+            return re.sub(r"^@!?U?P\w+\s+", "", ins).split(" ", 1)[0].split(".")[0]
+
+        loops = []
+        for addr, ins in instrs:
+            if opcode(ins) != "BRA":
+                continue
+            target = re.search(r"(\.L_x_\d+)|\b(0x[0-9a-f]+)", ins)
+            if target is None:
+                continue
+            to = labels.get(target.group(1)) if target.group(1) else int(target.group(2), 16)
+            if to is None or to > addr:
+                continue
+            body = [i for a, i in instrs if to <= a <= addr]
+            fma = sum(opcode(i) in ("FFMA", "FADD") for i in body)
+            if fma >= 36:
+                loops.append((len(body), fma))
+        if loops:
+            n, fma = min(loops)
+            return name, n, fma, n * 36 / fma
+    return None
+
+
 def sequential_surfaces(s0, prev_ts, chunks, leak):
     """Iterated integrate_step: the definition both kernels must equal."""
     from async_ev_cnn_torch.ops.integrate import integrate_step
@@ -316,10 +408,12 @@ def check_kernels_small(dev) -> None:
 
     rng = np.random.RandomState(7)
     cases = []
-    # (13, 17) x 2 channels: 442 pixels, K1's last tile ragged; T = 70: two
-    # of K1's windows, the second ragged
+    # (13, 17) x 2 channels: 442 pixels, K1's and K2's last tiles ragged; T =
+    # 70: two of K1's windows and three of K2's, the last ragged; 7x9, T =
+    # 33: two of K2's tiles (the second 31 pixels) and two windows (the
+    # second one chunk)
     for channels, (h, w), t in ((2, (13, 17), 10), (1, (16, 16), 10), (2, (16, 16), 10),
-                                (2, (13, 17), 70)):
+                                (2, (13, 17), 70), (1, (7, 9), 33)):
         e = 12
         ts = np.cumsum(rng.randint(1, 40, t * e)).astype(np.int32).reshape(t, e)
         valid = rng.rand(t, e) < 0.8
@@ -374,6 +468,34 @@ def check_kernels_small(dev) -> None:
                                       ).shape == (0, 1, 8, 8)
             and sc.LAUNCHES == before, "zero-chunk calls launched or counted")
 
+
+
+def pool_check(dev) -> str:
+    """maxpool_dense on the card against the same call on the CPU, equal
+    element for element: int32 and bool (which cuDNN's pool does not take)
+    and float32, 3-D and 4-D, 'VALID' and 'SAME' (asymmetric pads at the
+    ragged edges).  Returns the line."""
+    from async_ev_cnn_torch.ops.pool import maxpool_dense
+
+    rng = np.random.RandomState(17)
+    ints = rng.randint(-1000, 1000, (2, 16, 37, 53)).astype(np.int32)
+    ints[0, 0, 0, :2] = (np.iinfo(np.int32).min, np.iinfo(np.int32).max)
+    inputs = {"int32": ints, "bool": rng.rand(16, 37, 53) < 0.1,
+              "float32": rng.randn(2, 16, 37, 53).astype(np.float32)}
+    n = 0
+    for name, a in inputs.items():
+        cpu = torch.from_numpy(a)
+        card = cpu.to(dev)
+        for ksize, stride in (((2, 2), 2), ((3, 3), 2), ((3, 2), 1)):
+            for padding in ("VALID", "SAME"):
+                got = maxpool_dense(card, ksize, stride, padding)
+                want = maxpool_dense(cpu, ksize, stride, padding)
+                require(got.dtype == want.dtype and torch.equal(got.cpu(), want),
+                        f"maxpool_dense {name} {ksize}/{stride} {padding}: card != CPU")
+                n += 1
+    return (f"pool: maxpool_dense on the card equal to the CPU on {n} cases (int32 "
+            "[2, 16, 37, 53] with both extremes, bool [16, 37, 53], float32; (2, 2)/2, "
+            "(3, 3)/2, (3, 2)/1; 'VALID' and 'SAME')")
 
 
 def hwc_padded(spec, plane):
@@ -876,11 +998,29 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
     ]
 
 
+def k6_check(x, taps, bias, alpha, what: str) -> float:
+    """K6 against its plain version within K6_TOL * (1 + max|plain|), and
+    bit-equal across two launches.  Returns the max abs error."""
+    from async_ev_cnn_torch.ops import fused_stem as tf
+
+    got, again = tf.fused_stem(x, taps, bias, alpha), tf.fused_stem(x, taps, bias, alpha)
+    want = tf.fused_stem_plain(x, taps, bias, alpha)
+    torch.cuda.synchronize()
+    require(bit_equal(got, again), f"K6 at {what}: two launches on the same inputs differ")
+    err = float((got - want).abs().max())
+    tol = K6_TOL * (1 + float(want.abs().max()))
+    require(err <= tol, f"K6 at {what} differs from its plain version by {err} > {tol}")
+    return err
+
+
 def stem_kernel_phase(dev, model, c0):
     """Phase 14: K6 on the T=200 surfaces of a full-width dispatch, against
-    its plain version, fused_conv_pool and the direct conv1 -> pool1.
-    Returns K6's entry of the kernels' JSON line."""
+    its plain version, fused_conv_pool and the direct conv1 -> pool1, then
+    at its edge shapes (K6_EDGES).  Returns K6's entry of the kernels' JSON
+    line."""
+    from async_ev_cnn_torch.ops import conv as tconv
     from async_ev_cnn_torch.ops import fused_stem as tf
+    from async_ev_cnn_torch.ops import pool as tpool
     from async_ev_cnn_torch.ops import stem as tstem
     from async_ev_cnn_torch.ops.integrate import integrate_parallel
 
@@ -895,37 +1035,66 @@ def stem_kernel_phase(dev, model, c0):
     torch.cuda.synchronize()
     launches = tf.LAUNCHES["fused_stem"]
     require(launches == 1, f"K6's path launched {launches} times")
-    want = tf.fused_stem_plain(x, taps, b1, 0.1)
+    err = k6_check(x, taps, b1, 0.1, "full width")
     fused = tstem.fused_conv_pool(surfaces, w1, b1, 0.1)
     direct = model.net.full_frame_forward(model.params, st0, surfaces, upto=2)
     torch.cuda.synchronize()
-    require(bit_equal(got, want), "K6 (fused_stem) != its plain version")
     err_f = float((got - fused).abs().max())
     err_d = float((got - direct).abs().max())
     require(err_f <= 1e-5 and err_d <= 1e-5,
             f"K6 differs from fused_conv_pool by {err_f}, from the direct stem by {err_d}")
+    # the edge shapes, each against the plain version, a second launch and
+    # both library stems
+    rng = np.random.RandomState(13)
+    edges = []
+    for what, t_e, h_e, w_e, o_e, alpha in K6_EDGES:
+        xe = torch.from_numpy((rng.rand(t_e, h_e, w_e) * 2).astype(np.float32)).to(dev)
+        ke = torch.from_numpy((rng.randn(o_e, 1, 3, 3) * 0.3).astype(np.float32)).to(dev)
+        be = torch.from_numpy((rng.randn(o_e) * 0.1).astype(np.float32)).to(dev)
+        e_err = k6_check(xe, tf.w_taps_from_oihw(ke), be, alpha, what)
+        if alpha <= 1:  # the library stems' max(x, alpha * x) is the same activation
+            got_e = tf.fused_stem(xe, tf.w_taps_from_oihw(ke), be, alpha)
+            lib = (tstem.fused_conv_pool(xe[:, None], ke, be, alpha),
+                   tpool.maxpool_dense(tconv.leaky(tconv.conv2d_dense(
+                       xe[:, None], ke, be, 1, "SAME"), alpha), (2, 2), 2))
+            lib_err = max(float((got_e - y).abs().max()) for y in lib)
+            require(lib_err <= 1e-5, f"K6 at {what} differs from the library stems by {lib_err}")
+        edges.append(f"{what} (T={t_e} {h_e}x{w_e} O={o_e} alpha={alpha}) {e_err:.2e}")
+        err = max(err, e_err)
     t, h, w = x.shape
     o = taps.shape[1]
+
+    def call():
+        return tf.fused_stem(x, taps, b1, 0.1)
+
     times = {
-        "ms": time_ms(lambda: tf.fused_stem(x, taps, b1, 0.1), 50),
+        # a call's device time: the kernel and the taps' two copies into
+        # its constant block
+        "ms": device_ms(call),
+        "kernel_ms": device_ms(call, "fused_stem_kernel"),
+        "call_ms": time_ms(call, 50),
         "plain_ms": time_ms(lambda: tf.fused_stem_plain(x, taps, b1, 0.1), 3),
-        "library_ms": time_ms(lambda: model.net.full_frame_forward(
-            model.params, st0, surfaces, upto=2), 10),
-        "fused_conv_pool_ms": time_ms(lambda: tstem.fused_conv_pool(surfaces, w1, b1, 0.1), 10),
+        "library_ms": device_ms(lambda: model.net.full_frame_forward(
+            model.params, st0, surfaces, upto=2)),
+        "fused_conv_pool_ms": device_ms(lambda: tstem.fused_conv_pool(surfaces, w1, b1, 0.1)),
     }
     b_ms, b_by = bound_ms(4 * (t * h * w + 10 * o + t * o * (h // 2) * (w // 2)),
                           2 * 9 * t * o * h * w)
     print(f"stem-kernel: K6 over the {t} surfaces of a dispatch (C=1 {h}x{w}, O={o}): "
-          f"bit-equal to its plain version, within {err_f:.2e} of fused_conv_pool and "
-          f"{err_d:.2e} of the direct 'full' conv1 -> pool1; K6 {times['ms']:.4f} ms (plain "
-          f"{times['plain_ms']:.3f}, direct stem {times['library_ms']:.4f}, fused_conv_pool "
-          f"{times['fused_conv_pool_ms']:.4f}, bound {b_ms:.4f} {b_by}); launches "
+          f"within {K6_TOL} * (1 + max|plain|) of its plain version and bit-equal across two "
+          f"launches (max abs err {err:.2e} over the dispatch and the edges: "
+          + "; ".join(edges) + f"), within {err_f:.2e} of fused_conv_pool and "
+          f"{err_d:.2e} of the direct 'full' conv1 -> pool1 (the edges with alpha <= 1 within "
+          "1e-5 of both); "
+          f"K6 device {times['ms']:.4f} ms a call (kernel {times['kernel_ms']:.4f}, a call by "
+          f"events {times['call_ms']:.4f}; plain {times['plain_ms']:.3f}, direct stem device "
+          f"{times['library_ms']:.4f}, fused_conv_pool device "
+          f"{times['fused_conv_pool_ms']:.4f}, bound {b_ms:.5f} {b_by}); launches "
           f"{launches}", flush=True)
     return {"name": "fused_stem", "route": "cuda",
             "source": "async_ev_cnn_torch/csrc/fused_stem.cu",
             "replaces": "examples/pallas_stem_negative.py:74", "launches": launches,
-            "max_abs_err": float((got - want).abs().max()), "bound_ms": b_ms,
-            "bound_by": b_by, **times}
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, **times}
 
 
 def gather_copy_phase(dev):
@@ -1116,6 +1285,10 @@ def main() -> int:
                      f"; ptxas: {ptxas})")
     print(f"build: loaded in {time.perf_counter() - t0:.2f} s: " + "; ".join(parts),
           flush=True)
+    sass = sass_loop_cost(cuda_build.library_path("fused_stem"), K6_HOT_INSTANCE)
+    print("sass: " + ("cuobjdump not found" if sass is None else
+                      f"K6 {sass[0]}: hot loop {sass[1]} instructions, {sass[2]} FFMA/FADD, "
+                      f"{sass[3]:.1f} instructions a pooled pixel and channel"), flush=True)
 
     # ---- 3. kernels against their plain versions ----------------------------
     rng = np.random.RandomState(0)
@@ -1176,15 +1349,22 @@ def main() -> int:
     # surfaces written, surface + winner lists + decrements read
     k1_info["bound"] = bound_ms(4 * (t_len * p_len + p_len + 2 * t_len * e_len + t_len),
                                 4 * t_len * p_len + 6 * t_len * e_len)
+    k2_plan = sc.scan_tsmap_plan(t_len, p_len)
+
+    def k2_call():
+        return sc.surface_scan_tsmap(s0, ts_map, d2, lt2, LEAK)
+
     k2_info = {
-        "ms": time_ms(lambda: sc.surface_scan_tsmap(s0, ts_map, d2, lt2, LEAK), 50),
+        "ms": device_ms(k2_call, "scan_tsmap_kernel"),
+        "call_ms": time_ms(k2_call, 50),
         "plain_ms": time_ms(lambda: sc.surface_scan_tsmap_plain(s0, ts_map, d2, lt2, LEAK), 3),
         # ts maps read and surfaces written, surface + scalars read
         "bound": bound_ms(4 * (2 * t_len * p_len + p_len + 2 * t_len), 10 * t_len * p_len),
     }
     print("kernels: K1 == plain, K2 == plain, K1 == K2 bit for bit at "
           f"C=1 {H}x{W} T={t_len} E={e_len} on the uniform and the clustered lists; ragged "
-          "2-channel (one across two windows), -1/P winners, large-dt and "
+          "2-channel (one across two of K1's windows and three of K2's), two of K2's "
+          "windows and tiles, -1/P winners, large-dt and "
           f"iterated-integrate_step cases bit-equal; K1 [tile {plan.tile}, window "
           f"{plan.window}: {plan.n_tiles} tiles, {plan.n_windows} windows] device "
           f"{k1_info['ms']:.4f} ms uniform (binning pass {k1_info['bin_ms']:.4f}), "
@@ -1195,8 +1375,10 @@ def main() -> int:
           f"a call {k1_info['call_ms']:.4f} ms, plain {k1_info['plain_ms']:.3f} ms, bound "
           f"{k1_info['bound'][0]:.4f} ms {k1_info['bound'][1]}; chunk_event_updates (the "
           f"winner dedup) device {k1_info['front_ms']:.4f} ms uniform, "
-          f"{k1_info['clustered_front_ms']:.4f} clustered; K2 {k2_info['ms']:.4f} ms (plain "
-          f"{k2_info['plain_ms']:.3f} ms, bound {k2_info['bound'][0]:.4f} "
+          f"{k1_info['clustered_front_ms']:.4f} clustered; K2 [tile {k2_plan.tile}, window "
+          f"{k2_plan.window}: {k2_plan.n_tiles} tiles, {k2_plan.n_windows} windows] device "
+          f"{k2_info['ms']:.4f} ms (a call {k2_info['call_ms']:.4f} ms, plain "
+          f"{k2_info['plain_ms']:.3f} ms, bound {k2_info['bound'][0]:.6f} "
           f"ms); card {smi!r}", flush=True)
     del k1c, p1, p2, ts_map, cts_map
 
@@ -1300,6 +1482,7 @@ def main() -> int:
     require(out_err <= OUT_TOL, f"card and CPU outputs differ by {out_err}")
     print(f"card-vs-cpu: T={t_small}: surfaces bit-equal, prev_ts {ts_g} == {ts_c}, "
           f"grid outputs max abs diff {out_err:.3e} (tolerance {OUT_TOL})", flush=True)
+    print(pool_check(dev), flush=True)
 
     # ---- 6. where one dispatch's time goes -----------------------------------
     from torch.autograd import DeviceType
@@ -1339,7 +1522,7 @@ def main() -> int:
          **{k: v for k, v in k1_info.items() if k not in ("bound", "hot")}},
         {"name": "surface_scan_tsmap", "replaces": "async_ev_cnn_tpu/ops/pallas_scan.py:105",
          "launches": tsmap_launches["surface_scan_tsmap"], "max_abs_err": err2,
-         "ms": k2_info["ms"], "plain_ms": k2_info["plain_ms"]},
+         **{k: v for k, v in k2_info.items() if k != "bound"}},
     ]
     kernels = []
     for entry, bound in zip(scans, (k1_info["bound"], k2_info["bound"])):
@@ -1356,5 +1539,77 @@ def main() -> int:
     return 0
 
 
+def kernel_times() -> dict:
+    """K2 and K6 at the main path's shapes by device time, with the
+    package that ``sys.path`` finds: the worker of :func:`compare`.  Only
+    the wrappers' public calls, which a parent commit shares."""
+    from async_ev_cnn_torch.ops import cuda_build
+    from async_ev_cnn_torch.ops import fused_stem as tf
+    from async_ev_cnn_torch.ops import integrate as it
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    import async_ev_cnn_torch
+
+    dev = torch.device("cuda", 0)
+    cuda_build.load_all(("surface_scan", "fused_stem"))
+    rng = np.random.RandomState(0)
+    chunks = pack_chunks(synth_stream(rng, T_CHUNKS, CAPACITY), CAPACITY, device=dev)
+    s0 = torch.zeros((1, H, W), dtype=torch.float32, device=dev)
+    prev = torch.tensor(0, dtype=torch.int32, device=dev)
+    ts_map, d, lt = it.chunk_ts_maps(1, H, W, prev, chunks, LEAK)
+    x = it.integrate_parallel(s0, prev, chunks, LEAK)[0][:, 0].contiguous()
+    wr = np.random.RandomState(1)
+    taps = tf.w_taps_from_oihw(torch.from_numpy(
+        (wr.randn(16, 1, 3, 3) * 0.05).astype(np.float32)).to(dev))
+    bias = torch.from_numpy((wr.randn(16) * 0.05).astype(np.float32)).to(dev)
+
+    def k2():
+        return sc.surface_scan_tsmap(s0, ts_map, d, lt, LEAK)
+
+    def k6():
+        return tf.fused_stem(x, taps, bias, 0.1)
+
+    sass = sass_loop_cost(cuda_build.library_path("fused_stem"), K6_HOT_INSTANCE)
+    if sass is None or "ILi16E" not in sass[0]:  # a tree without the template
+        sass = sass_loop_cost(cuda_build.library_path("fused_stem"), "fused_stem_kernel")
+    return {"package": str(Path(async_ev_cnn_torch.__file__).resolve().parent),
+            "k2_ms": device_ms(k2, "scan_tsmap_kernel"), "k2_call_ms": time_ms(k2, 50),
+            "k6_ms": device_ms(k6), "k6_kernel_ms": device_ms(k6, "fused_stem_kernel"),
+            "k6_call_ms": time_ms(k6, 50),
+            "k6_sass_per_px_ch": None if sass is None else sass[3]}
+
+
+def compare(parent: Path) -> int:
+    """K2 and K6 of the checkout at ``parent`` against this one's on one
+    card, in the order parent, this, this, parent: each a process of its
+    own that imports its tree's package and builds its kernels."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    rows = []
+    for tree in (parent, HERE, HERE, parent):
+        proc = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"), "--kernel-times",
+                               str(tree)], capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        rows.append({"tree": "parent" if tree == parent else "change",
+                     **json.loads(proc.stdout.strip().splitlines()[-1])})
+        print(json.dumps(rows[-1]), flush=True)
+    print(f"compare: card {smi!r}; " + "; ".join(
+        f"{r['tree']}: K2 device {r['k2_ms']:.5f} ms (a call {r['k2_call_ms']:.4f}), K6 device "
+        f"{r['k6_ms']:.5f} ms (kernel {r['k6_kernel_ms']:.5f}, a call {r['k6_call_ms']:.4f}, "
+        f"SASS a pooled pixel and channel {r['k6_sass_per_px_ch']})" for r in rows))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernel-times":
+        # the package of the tree named, ahead of this file's own
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        print(json.dumps(kernel_times()))
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        sys.exit(compare(Path(sys.argv[2]).resolve()))
     sys.exit(main())

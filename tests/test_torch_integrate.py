@@ -221,6 +221,56 @@ def test_plain_scan_matches_pallas_across_windows_and_ragged_tiles(rng):
                  .numpy())
 
 
+@pytest.mark.parametrize("t,p", [(1, 1), (10, 442), (32, 32), (33, 63), (70, 300),
+                                 (200, 35840), (129, 71680)])
+def test_scan_tsmap_plan_tiles_and_windows(t, p):
+    """K2's plan: every pixel in exactly one tile (the last one ragged and
+    never empty), and the windows partition T (the last one ragged)."""
+    plan = tscan.scan_tsmap_plan(t, p)
+    cover = np.zeros(p, np.int32)
+    for j in range(plan.n_tiles):
+        cover[j * plan.tile:(j + 1) * plan.tile] += 1
+    assert (cover == 1).all() and (plan.n_tiles - 1) * plan.tile < p
+    chunks = np.zeros(t, np.int32)
+    for w in range(plan.n_windows):
+        chunks[w * plan.window:(w + 1) * plan.window] += 1
+    assert (chunks == 1).all() and (plan.n_windows - 1) * plan.window < t
+
+
+def test_scan_tsmap_plan_matches_the_cuda_source():
+    """The plan's tile and window are the kernel's: surface_scan.cu refuses
+    a launch whose tile, window or tile count disagrees with its own, and
+    its kernel is one warp a block with a lane a chunk's scalars."""
+    src = (Path(__file__).resolve().parent.parent / "async_ev_cnn_torch" / "csrc"
+           / "surface_scan.cu").read_text()
+    for name, value in (("kTsTile", tscan.TSMAP_TILE), ("kTsWindow", tscan.TSMAP_WINDOW)):
+        found = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert found is not None and int(found.group(1)) == value, name
+    assert "n_tiles != (p_len + kTsTile - 1) / kTsTile" in src
+    assert tscan.TSMAP_TILE == tscan.TSMAP_WINDOW == 32
+    plan = tscan.scan_tsmap_plan(200, 160 * 224)
+    assert (plan.n_tiles, plan.n_windows) == (1120, 7)
+
+
+@pytest.mark.parametrize("t,channels,h,w", [(33, 1, 7, 9), (70, 2, 13, 17)])
+def test_plain_tsmap_scan_matches_pallas_across_windows_and_ragged_tiles(rng, t, channels,
+                                                                         h, w):
+    """The ts-map scan's plain version against the JAX Pallas kernel
+    (interpret mode) at T past one of K2's windows and not a multiple of
+    it (33: the second window one chunk; 70: three windows) and P not a
+    multiple of its tile (63, 442), with one all-padding chunk."""
+    leak = 3e-3
+    assert t % tscan.TSMAP_WINDOW and (channels * h * w) % tscan.TSMAP_TILE
+    arrays = _chunk_arrays(rng, t, 12, h, w)
+    arrays[4][t // 2] = False
+    tc, jc = _both(arrays)
+    s0 = _surface(rng, channels, h, w)
+    ts_mj, d2j, lt2j = jint.chunk_ts_maps(channels, h, w, jnp.int32(5), jc, leak)
+    want = surface_scan_pallas(jnp.asarray(s0), ts_mj, d2j, lt2j, leak, interpret=True)
+    ts_map, d2, lt2 = tint.chunk_ts_maps(channels, h, w, 5, tc, leak)
+    _assert_bits(tscan.surface_scan_tsmap(torch.from_numpy(s0), ts_map, d2, lt2, leak), want)
+
+
 def test_integrate_parallel_engines_match_sequential_chain(rng):
     """integrate_parallel ('events', 'tsmap', 'auto') against the port's own
     iterated integrate_step, on a 2-channel surface with an empty chunk."""

@@ -21,6 +21,7 @@ the card, where chip_smoke.py holds them against these plain versions.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -111,9 +112,13 @@ def test_k5_checks_inputs(rng):
     assert tuple(out[0].shape) == (0, 4, 4)
 
 
-def test_k6_plain_matches_example(rng):
+@pytest.mark.parametrize("t,h,w,o", [
+    (2, 16, 24, 4),
+    (3, 18, 14, 1),    # O = 1; H/2 = 9, W/2 = 7 odd
+    (1, 22, 30, 32),   # O = 32; H/2 = 11, W/2 = 15 odd
+])
+def test_k6_plain_matches_example(rng, t, h, w, o):
     psn = _example("pallas_stem_negative")
-    t, h, w, o = 2, 16, 24, 4
     x = rng.rand(t, h, w).astype(np.float32)
     k = (rng.randn(o, 1, 3, 3) * 0.3).astype(np.float32)
     b = (rng.randn(o) * 0.1).astype(np.float32)
@@ -142,6 +147,30 @@ def test_k6_rejects_what_it_does_not_take(rng):
     for shape in ((2, 15, 8), (2, 1, 8, 8)):
         with pytest.raises(ValueError, match="even H and W"):
             tf.fused_stem(_t(rng.rand(*shape).astype(np.float32)), taps, b)
+    # O past the kernel's constant block, or none: refused on either route
+    x = _t(rng.rand(1, 4, 4).astype(np.float32))
+    for o in (tf.STEM_MAX_O + 1, 0):
+        with pytest.raises(ValueError, match=f"1 <= O <= {tf.STEM_MAX_O}"):
+            tf.fused_stem(x, _t(rng.rand(9, o).astype(np.float32)),
+                          _t(rng.rand(o).astype(np.float32)))
+    out = tf.fused_stem(x, _t(rng.rand(9, tf.STEM_MAX_O).astype(np.float32)),
+                        _t(rng.rand(tf.STEM_MAX_O).astype(np.float32)))
+    assert tuple(out.shape) == (1, tf.STEM_MAX_O, 2, 2)
+
+
+def test_k6_constants_match_the_cuda_source():
+    """The wrapper's largest O is the kernel's constant block, and at the
+    eFCN's width a tile's items (2x2 pooled pixels each: half the band's
+    rows, a pair of columns) are exactly the block's threads."""
+    src = (REPO / "async_ev_cnn_torch" / "csrc" / "fused_stem.cu").read_text()
+
+    def constant(name):
+        found = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert found is not None, name
+        return int(found.group(1))
+
+    assert constant("kMaxO") == tf.STEM_MAX_O
+    assert constant("kBand") // 2 * (224 // 4) == constant("kThreads")
 
 
 @pytest.fixture(scope="module")

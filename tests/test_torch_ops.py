@@ -89,15 +89,31 @@ def test_leaky_and_mask_exact(rng):
             np.asarray(jconv.leaky_mask(jnp.asarray(x), alpha)))
 
 
-@pytest.mark.parametrize("ksize,stride", [((2, 2), 2), ((3, 3), 3), ((2, 2), 1)])
-def test_maxpool_dense_exact(rng, ksize, stride):
-    for shape in ((4, 9, 11), (2, 3, 8, 8)):
-        x = rng.randn(*shape).astype(np.float32)
-        got = tpool.maxpool_dense(_t(x), ksize, stride)
-        want = jpool.maxpool_dense(jnp.asarray(x), ksize, stride, "VALID")
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="VALID"):
-        tpool.maxpool_dense(_t(x), ksize, stride, "SAME")
+def _pool_input(rng, shape, dtype):
+    if dtype == "bool":
+        return rng.rand(*shape) < 0.2
+    if dtype == "int32":
+        # the extremes too: SAME pads with the type's least value
+        x = rng.randint(-50, 50, shape).astype(np.int32)
+        x.flat[0], x.flat[-1] = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+        return x
+    return rng.randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("padding", ["VALID", "SAME"])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bool"])
+@pytest.mark.parametrize("ksize,stride", [((2, 2), 2), ((3, 3), 3), ((2, 2), 1),
+                                          ((3, 2), 2)])
+def test_maxpool_dense_exact(rng, ksize, stride, dtype, padding):
+    """Float32, int32 and bool (the window-wise OR), VALID and TF SAME
+    (asymmetric pads where the windows overhang the ragged edge), 3-D and
+    4-D: equal to the JAX op element for element, dtype and shape too."""
+    for shape in ((4, 9, 11), (2, 3, 8, 8), (1, 7, 13)):
+        x = _pool_input(rng, shape, dtype)
+        got = tpool.maxpool_dense(_t(x), ksize, stride, padding)
+        want = np.asarray(jpool.maxpool_dense(jnp.asarray(x), ksize, stride, padding))
+        assert got.numpy().dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_matmul_tier_turns_tf32_off():
