@@ -393,6 +393,7 @@ class EventNetwork:
         state: tuple,
         chunks: EventChunk,
         window: int | None = None,
+        ts_window: tuple[int, int] | None = None,
         integrate_engine: str = "auto",
         window_budget_mb: float | None = None,
     ):
@@ -406,8 +407,12 @@ class EventNetwork:
         chunks (a shorter last window; the JAX package pads it with
         all-invalid chunks, which are exact identity updates).  Or pass
         ``window_budget_mb`` and the window comes from :meth:`auto_window`
-        (ignored when ``window`` is given).  ``integrate_engine`` selects
-        the surface-reconstruction engine ('auto' | 'events' | 'tsmap').
+        (ignored when ``window`` is given).  ``ts_window`` (``(wh, ww)``)
+        is the JAX package's bounding window of the per-chunk ts maps; it
+        changes no result, here as there
+        (:func:`~async_ev_cnn_torch.ops.integrate.chunk_ts_maps`).
+        ``integrate_engine`` selects the surface-reconstruction engine
+        ('auto' | 'events' | 'tsmap' | 'maxplus').
 
         Returns ``(new_state, outputs [T, ...])``.
         """
@@ -432,7 +437,7 @@ class EventNetwork:
         for a in range(0, t, window):
             cs = EventChunk(*(f[a:a + window] for f in chunks))
             surfaces, last_ts = integrate_parallel(
-                surf, pts, cs, leak, engine=integrate_engine)
+                surf, pts, cs, leak, ts_window=ts_window, engine=integrate_engine)
             outs.append(self.full_frame_forward(params, state, surfaces))
             # clone: a view would keep the window's whole surface stack alive
             surf, pts = surfaces[-1].clone(), last_ts[-1].clone()

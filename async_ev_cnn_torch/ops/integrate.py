@@ -18,6 +18,7 @@ from async_ev_cnn_torch.ops.surface_scan import (
     surface_scan_events,
     surface_scan_tsmap,
 )
+from async_ev_cnn_torch.utils.device import resolve_device
 
 
 def _i32(value, device) -> torch.Tensor:
@@ -159,14 +160,21 @@ def chunk_event_updates(channels, h, w, prev_ts, chunks, leak):
     return pix, dt, d, last_ts
 
 
-def chunk_ts_maps(channels, h, w, prev_ts, chunks, leak):
+def chunk_ts_maps(channels, h, w, prev_ts, chunks, leak, ts_window=None):
     """Per-chunk timestamp maps and leak decrements.
 
     Returns ``(ts_map, d, last_ts)``: int32 ``[T, C, H, W]`` per-pixel max
     event timestamps (sentinel where a chunk has no event at that pixel),
     f32 ``[T]`` snapped leak decrements and int32 ``[T]`` running last-event
-    timestamps.  The full map only; the bounding-window variant
-    (``ts_window``) comes with a later slice.
+    timestamps.
+
+    ``ts_window`` (``(wh, ww)``) is accepted for the JAX package's
+    signature and computes nothing differently.  There it bounds each
+    chunk's O(H*W*E) compare-reduce to a window around the chunk's events,
+    falling back to the full compare when a chunk overflows, and gives the
+    same maps bit for bit either way.  Here the maps come from one O(T*E)
+    ``scatter_reduce``, which has no per-pixel compare to shrink, so the
+    window would add work and change nothing.
     """
     last_ts, d = _ts_chain(prev_ts, chunks, leak)
     dev = chunks.ts.device
@@ -190,7 +198,68 @@ def chunk_ts_maps(channels, h, w, prev_ts, chunks, leak):
     return ts_map.reshape(t, channels, h, w), d, last_ts
 
 
+def chunk_affine_updates(channels, h, w, prev_ts, chunks, leak, ts_window=None):
+    """Per-chunk max-plus coefficients of the leaky-surface update.
+
+    Returns ``(b, c, last_ts)``: f32 ``[T, C, H, W]`` pairs such that chunk
+    t's surface update is ``s -> max(s + b[t], c[t])``, and the int32
+    ``[T]`` running last-event timestamps.  Every rounded product goes
+    through ``snap`` as on the sequential path.  The 'maxplus' engine of
+    :func:`integrate_parallel` scans them; the pairs also compose across
+    devices (the JAX package's time shard)."""
+    ts_map, d, last_ts = chunk_ts_maps(channels, h, w, prev_ts, chunks, leak,
+                                       ts_window=ts_window)
+    ev_mask = ts_map > TS_SENTINEL_VALUE
+    lt = last_ts[:, None, None, None]
+    contrib = 1 - snap((lt - ts_map).float() * float32_scalar(leak, "cpu"))
+    a = torch.where(ev_mask, contrib, torch.zeros((), dtype=torch.float32,
+                                                  device=contrib.device))
+    b = a - d[:, None, None, None]
+    c = torch.clamp_min(a, 0.0)
+    return b, c, last_ts
+
+
+def maxplus_combine(left, right):
+    """Composition of max-plus affine maps ``g[b, c](s) = max(s + b, c)``:
+    ``right`` applied after ``left``."""
+    bl, cl = left
+    br, cr = right
+    return bl + br, torch.maximum(cl + br, cr)
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a[0], b[0], a[1], b[1], ...`` along axis 0 (``len(a)`` is
+    ``len(b)`` or one more)."""
+    out = torch.empty((a.shape[0] + b.shape[0], *a.shape[1:]), dtype=a.dtype,
+                      device=a.device)
+    out[0::2] = a
+    out[1::2] = b
+    return out
+
+
+def associative_scan(fn, elems: tuple) -> tuple:
+    """Inclusive prefix scan of the associative ``fn`` over axis 0 of the
+    tensors in ``elems``, with ``jax.lax.associative_scan``'s grouping:
+    combine adjacent pairs, scan the half-length result recursively (the
+    odd outputs), then combine each odd output with the next even input
+    (the even outputs), and interleave.  ``fn`` takes and returns tuples
+    like ``elems``.  For floating-point ``fn`` the grouping decides the
+    roundings, so the same grouping gives the JAX package's bits."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = fn(tuple(e[0:-1:2] for e in elems), tuple(e[1::2] for e in elems))
+    odd = associative_scan(fn, reduced)
+    if n % 2 == 0:
+        even = fn(tuple(e[:-1] for e in odd), tuple(e[2::2] for e in elems))
+    else:
+        even = fn(odd, tuple(e[2::2] for e in elems))
+    even = tuple(torch.cat([e[:1], r]) for e, r in zip(elems, even))
+    return tuple(_interleave(a, b) for a, b in zip(even, odd))
+
+
 def integrate_parallel(surface, prev_ts, chunks, leak: float,
+                       ts_window: tuple[int, int] | None = None,
                        engine: str = "auto"):
     """All ``T`` chunk-boundary surfaces at once (parallel-in-time).
 
@@ -202,16 +271,29 @@ def integrate_parallel(surface, prev_ts, chunks, leak: float,
     * ``'tsmap'`` (JAX ``'pallas_tsmap'``): the maps of
       :func:`chunk_ts_maps` streamed through :func:`surface_scan_tsmap`;
       the cross-check of the 'events' engine.
+    * ``'maxplus'`` (JAX ``'xla'``): the per-chunk update
+      ``f(s) = max(max(s - d, 0) + a, 0)`` is the max-plus affine map
+      ``g[b, c](s) = max(s + b, c)`` with ``b = a - d``, ``c = max(a, 0)``
+      (:func:`chunk_affine_updates`), closed under composition
+      (:func:`maxplus_combine`), so one :func:`associative_scan` over the
+      ``(b, c)`` pairs gives every surface.  Plain torch ops; the grouping
+      is JAX's, so it matches the JAX ``'xla'`` engine bit for bit, and
+      the other engines to the snap grid up to the regrouping (~1 ulp).
     * ``'auto'`` is ``'events'``.
 
-    Both are bit-identical to iterating :func:`integrate_step`.  The JAX
-    package's max-plus ``'xla'`` engine comes with the time-shard slice.
+    'events' and 'tsmap' are bit-identical to iterating
+    :func:`integrate_step`.
 
     Args:
       surface: f32 ``[C, H, W]`` surface at the window start.
       prev_ts: int32 scalar, last event timestamp before the window.
       chunks: stacked :class:`EventChunk` with leading time axis ``[T, E]``.
       leak: leak rate per microsecond.
+      ts_window: optional ``(wh, ww)``, the JAX package's bounding window
+        of the ts maps; the 'events' engine ignores it, as there, and the
+        others compute the same maps with or without it
+        (:func:`chunk_ts_maps`).
+      engine: ``'auto' | 'events' | 'tsmap' | 'maxplus'``.
 
     Returns:
       ``(surfaces, last_ts)``: f32 ``[T, C, H, W]`` surfaces after each
@@ -223,8 +305,83 @@ def integrate_parallel(surface, prev_ts, chunks, leak: float,
             channels, h, w, prev_ts, chunks, leak)
         return surface_scan_events(surface.contiguous(), pix, dt, d, leak), last_ts
     if engine == "tsmap":
-        ts_map, d, last_ts = chunk_ts_maps(channels, h, w, prev_ts, chunks, leak)
+        ts_map, d, last_ts = chunk_ts_maps(channels, h, w, prev_ts, chunks, leak,
+                                           ts_window=ts_window)
         return surface_scan_tsmap(surface.contiguous(), ts_map, d, last_ts,
                                   leak), last_ts
+    if engine == "maxplus":
+        b, c, last_ts = chunk_affine_updates(channels, h, w, prev_ts, chunks, leak,
+                                             ts_window=ts_window)
+        big_b, big_c = associative_scan(maxplus_combine, (b, c))
+        return torch.maximum(surface[None] + big_b, big_c), last_ts
     raise ValueError(
-        f"engine must be 'auto', 'events' or 'tsmap', got {engine!r}")
+        f"engine must be 'auto', 'events', 'tsmap' or 'maxplus', got {engine!r}")
+
+
+# ---- frame integration (the frame models' input) -----------------------------
+
+
+def _integrate_frame(frame, prev_ts, y, x, ts, leak: float, h: int, w: int):
+    """One slice of :func:`integrate_frame`: the JAX package's
+    ``_integrate_frame_jit``, with its strict ``< 0`` clamps kept as
+    ``where`` (a ``clamp`` would turn -0.0 into +0.0)."""
+    zero = torch.zeros((), dtype=torch.float32, device=frame.device)
+    leak_f = float32_scalar(leak, "cpu")
+    last_ts = torch.maximum(prev_ts, ts.max())
+    f1 = frame - snap((last_ts - prev_ts).float() * leak_f)
+    f1 = torch.where(f1 < 0, zero, f1)
+    ts_map = _event_ts_map(y, x, ts, torch.ones_like(ts, dtype=torch.bool), h, w)
+    ev_mask = ts_map > TS_SENTINEL_VALUE
+    contrib = 1 - snap((last_ts - ts_map).float() * leak_f)
+    f2 = f1 + torch.where(ev_mask, contrib, zero)
+    f2 = torch.where(f2 < 0, zero, f2)
+    return f2, last_ts
+
+
+def integrate_frame(events, leak, frame_h, frame_w, prev_output=None, device=None):
+    """Stateless-in/out frame accumulator, the frame models' input.
+
+    The JAX package's ``integrate_frame`` (the reference's viz.py
+    accumulator): ``events`` is ``[N, 3]`` rows of ``(y, x, ts)`` (a numpy
+    array or a tensor); returns ``(frame [H, W] f32, last_ts int32)`` on
+    ``device`` (``cuda`` when not given).  ``prev_output`` is the previous
+    call's return: chaining one call per chunk is the reference's
+    per-micro-batch protocol.  Within a call the last duplicate of a pixel
+    wins.  An empty ``events`` returns ``prev_output`` unchanged (no time
+    advances, nothing lands).  Bit-exact to the JAX package.
+    """
+    dev = resolve_device(device)
+    if prev_output is None:
+        frame = torch.zeros((frame_h, frame_w), dtype=torch.float32, device=dev)
+        prev_ts = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        frame, prev_ts = prev_output
+        frame = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+        prev_ts = torch.as_tensor(prev_ts, dtype=torch.int32, device=dev)
+    events = torch.as_tensor(events, device=dev)
+    if events.shape[0] == 0:
+        return frame, prev_ts
+    y, x, ts = (events[:, i].to(torch.int32) for i in range(3))
+    return _integrate_frame(frame, prev_ts, y, x, ts, leak, frame_h, frame_w)
+
+
+def integrate_frame_chunked(events, leak, frame_h, frame_w, prev_output=None,
+                            slice_len=2048, device=None):
+    """:func:`integrate_frame` over fixed-size event slices, chained: the
+    same value as one :func:`integrate_frame` call per slice, as in the JAX
+    package.  A ragged last slice is padded by repeating its final event,
+    which changes no pixel's winner within the slice (the JAX package pads
+    so that one compiled program serves every stream length; the port
+    keeps the padding so the two agree on what a slice is)."""
+    dev = resolve_device(device)
+    events = torch.as_tensor(events, device=dev)
+    n = events.shape[0]
+    if n == 0:
+        return integrate_frame(events, leak, frame_h, frame_w, prev_output, dev)
+    out = prev_output
+    for i in range(0, n, slice_len):
+        sl = events[i:i + slice_len]
+        if sl.shape[0] < slice_len:
+            sl = torch.cat([sl, sl[-1:].expand(slice_len - sl.shape[0], -1)])
+        out = integrate_frame(sl, leak, frame_h, frame_w, out, dev)
+    return out

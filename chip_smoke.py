@@ -6,8 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --compare PARENT`` instead times K2 and K6 (device
-time, and K6's SASS count) of the checkout at PARENT against this one's on
-one card, in the order parent, this, this, parent.
+time, and K6's SASS count) and phase 4's path (events/s of three runs of
+15 timed dispatches) of the checkout at PARENT against this one's on one
+card, in the order parent, this, this, parent.
 
 Phases, one line each on standard output:
 
@@ -110,6 +111,35 @@ paths, and the precision options:
     unfused, the full-width gate (200 steps) in 'full' and 'dense', and at
     'default' the gate in 'sparse_pallas' (recorded, not held to 1e-4);
     'highest' is restored whatever happens.
+
+Then the checkpoints, the frame detector, ts_window and the max-plus
+engine, on the same full-width eFCN and seeded weights:
+
+18. checkpoint: the weights written by save_params (.npz) and
+    save_params_tf (TF bundle) under a temporary directory, each loaded by
+    YoloEventTorch(checkpoint=...) (the load timed): parameters bit-equal
+    to the set_weights model's; its path, one T=200 dispatch of each model
+    through scan (K1, counted), grids and surfaces bit-equal; the stream
+    state saved after that dispatch and restored, the next dispatch
+    bit-equal to the uninterrupted run;
+19. frame: integrate_frame chained per chunk on the card over one
+    dispatch's events, bit-equal to the event path's surfaces;
+    YoloFrameTorch at 'highest' on every frame (frames/s and p50 ms a frame
+    by CUDA events), within 1e-4 of YoloEventTorch's 'full' grids at the
+    same chunk boundaries and of itself on the CPU (3 frames); the dense
+    'numpy' chain against YoloFrameNumpy within 1e-4 (2 frames); then
+    head.decode, nms_torch on the card keeping the boxes nms keeps on the
+    host (3 frames), decode_predictions on the card equal to the host's,
+    and evaluate_detections against seeded synthetic boxes;
+20. ts-window: scan_parallel(ts_window=(16, 16), integrate_engine='tsmap')
+    on a clustered stream (radius 8), on a dispatch whose chunks all fit
+    the window and on one where a chunk overflows it: K2 launched once on
+    each (counted), surfaces bit-equal and outputs within 1e-4 of the
+    'events' engine's;
+21. maxplus: the T=200 dispatch through integrate_parallel(engine='maxplus')
+    within 1e-6 of 'events', a scan_parallel dispatch through it within
+    1e-4, and the device time of both engines' integrate calls beside
+    phase 3's K1 and winner dedup.
 
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's to K6's ``ms`` are their device time per call from
@@ -1234,6 +1264,289 @@ def tier_phase(dev, args, layer_defs, num_classes, num_bbox, c0, smi):
     print("tiers: " + "; ".join(lines) + f"; card {smi!r}", flush=True)
 
 
+def yolo_kwargs(args, layer_defs, num_classes, num_bbox, dev, **kw):
+    """The eFCN model arguments of the config, on ``dev``."""
+    return dict(h_frame=args.frame_h, w_frame=args.frame_w, num_classes=num_classes,
+                cnn_layers=layer_defs, cnn_padding=args.yolo_cnn_padding,
+                h_cells=args.yolo_num_cells_h, w_cells=args.yolo_num_cells_w,
+                num_bbox=num_bbox, alpha=0.1, leak=args.leak, device=dev, **kw)
+
+
+def checkpoint_phase(model, kwargs, items, smi):
+    """Phase 18: the seeded weights written as .npz and as a TF bundle,
+    loaded back by ``YoloEventTorch(checkpoint=...)``; a dispatch of each
+    through ``scan`` (K1) against the ``set_weights`` model; the stream
+    state saved after one dispatch and restored for the next."""
+    import tempfile
+
+    from async_ev_cnn_torch.models.yolo import YoloEventTorch
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.utils.checkpoint import (
+        restore_stream_state, save_params, save_params_tf, save_stream_state)
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    dev = model.device
+    weights = make_params(kwargs["cnn_layers"], np.random.RandomState(0))
+    c0 = pack_chunks(items[0], CAPACITY, device=dev)
+    c1 = pack_chunks(items[1], CAPACITY, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"npz": str(Path(tmp) / "efcn.npz"), "bundle": str(Path(tmp) / "efcn")}
+        t0 = time.perf_counter()
+        save_params(paths["npz"], weights)
+        save_s = {"npz": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        save_params_tf(paths["bundle"], weights)
+        save_s["bundle"] = time.perf_counter() - t0
+        loaded, load_ms = {}, {}
+        for fmt, path in paths.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded[fmt] = YoloEventTorch(**kwargs, conv_mode="full", checkpoint=path)
+            torch.cuda.synchronize()
+            load_ms[fmt] = (time.perf_counter() - t0) * 1e3
+        n_bytes = sum(v.nbytes for v in weights.values())
+        for fmt, m in loaded.items():
+            require(sorted(m.params) == sorted(model.params)
+                    and all(m.params[k].dtype == v.dtype and bit_equal(m.params[k], v)
+                            for k, v in model.params.items()),
+                    f"the {fmt} checkpoint's parameters differ from set_weights'")
+        # the path: one T=200 dispatch of each model through scan (K1)
+        sc.reset_launches()
+        grids = {name: m.scan(m.init_state(), c0)
+                 for name, m in (("set_weights", model), *loaded.items())}
+        torch.cuda.synchronize()
+        launches = dict(sc.LAUNCHES)
+        require(launches == {"surface_scan_events": 3, "surface_scan_tsmap": 0},
+                f"checkpoint path launches {launches} for three single-window dispatches")
+        ref_state, ref = grids["set_weights"]
+        for fmt in loaded:
+            require(bit_equal(grids[fmt][1], ref)
+                    and bit_equal(grids[fmt][0][0].surface, ref_state[0].surface),
+                    f"the {fmt} model's dispatch differs from the set_weights model's")
+        # the stream state across a save and a restore
+        state_path = str(Path(tmp) / "state.npz")
+        t0 = time.perf_counter()
+        save_stream_state(state_path, ref_state)
+        restored = restore_stream_state(state_path, model.init_state())
+        state_ms = (time.perf_counter() - t0) * 1e3
+        st_a, out_a = model.scan(ref_state, c1)
+        st_b, out_b = model.scan(restored, c1)
+        torch.cuda.synchronize()
+        require(bit_equal(out_a, out_b) and bit_equal(st_a[0].surface, st_b[0].surface)
+                and int(st_a[0].prev_ts) == int(st_b[0].prev_ts),
+                "the dispatch after a restored stream state differs from the uninterrupted run")
+    print(f"checkpoint: seeded eFCN weights ({n_bytes} bytes) written as .npz in "
+          f"{save_s['npz'] * 1e3:.1f} ms and as a TF bundle in {save_s['bundle'] * 1e3:.1f} ms; "
+          f"YoloEventTorch(checkpoint=...) built and loaded in {load_ms['npz']:.1f} ms (npz), "
+          f"{load_ms['bundle']:.1f} ms (bundle), parameters bit-equal to set_weights'; one "
+          f"T={T_CHUNKS} dispatch of each through scan bit-equal (launches {launches}); the "
+          f"stream state saved and restored in {state_ms:.1f} ms, the next dispatch bit-equal "
+          f"to the uninterrupted run; card {smi!r}", flush=True)
+    return load_ms
+
+
+def frame_phase(model, kwargs, items, smi):
+    """Phase 19: the frame detector.  ``integrate_frame`` chained per chunk
+    on the card over one dispatch's events; ``YoloFrameTorch`` on every
+    frame against the event model's grids at the same chunk boundaries and
+    against itself on the CPU; the dense 'numpy' chain against
+    ``YoloFrameNumpy``; then decode, ``nms_torch`` against the host ``nms``,
+    and ``evaluate_detections``."""
+    from async_ev_cnn_torch.layers.network import dense_forward
+    from async_ev_cnn_torch.models import head
+    from async_ev_cnn_torch.models.yolo import YoloFrameNumpy, YoloFrameTorch
+    from async_ev_cnn_torch.ops import integrate as it
+    from async_ev_cnn_torch.utils.evaluation import decode_predictions, evaluate_detections
+    from async_ev_cnn_torch.utils.nms import nms, nms_torch
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    dev = model.device
+    weights = make_params(kwargs["cnn_layers"], np.random.RandomState(0))
+    events = torch.from_numpy(items[0]).to(dev)
+    state, frames = None, []
+    for i in range(T_CHUNKS):
+        state = it.integrate_frame(events[i * CAPACITY:(i + 1) * CAPACITY], LEAK, H, W,
+                                   state, device=dev)
+        frames.append(state[0])
+    frames = torch.stack(frames)
+    c0 = pack_chunks(items[0], CAPACITY, device=dev)
+    zero = torch.zeros((1, H, W), dtype=torch.float32, device=dev)
+    surfaces, _ = it.integrate_parallel(zero, 0, c0, LEAK)
+    require(bit_equal(frames, surfaces[:, 0]),
+            "integrate_frame chained per chunk != the event path's surfaces")
+    _, grids = model.scan(model.init_state(), c0)
+
+    fm = YoloFrameTorch(**kwargs)
+    fm.set_weights(weights)
+    outs, ends = [], []
+    fm.forward(frames[0])  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for t in range(T_CHUNKS):
+        outs.append(fm.forward(frames[t]))
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    marks = [start.elapsed_time(e) for e in ends]
+    per_frame = np.diff([0.0] + marks)
+    outs = torch.stack(outs)
+    ev_err = float((outs - grids).abs().max())
+    require(ev_err <= OUT_TOL, f"YoloFrameTorch differs from the event grids by {ev_err}")
+    few = (0, T_CHUNKS // 2, T_CHUNKS - 1)
+    fm_cpu = YoloFrameTorch(**{**kwargs, "device": "cpu"})
+    fm_cpu.set_weights(weights)
+    cpu_err = max(float((fm_cpu.forward(frames[t].cpu()) - outs[t].cpu()).abs().max())
+                  for t in few)
+    require(cpu_err <= OUT_TOL, f"YoloFrameTorch on the card and the CPU differ by {cpu_err}")
+    fn = YoloFrameNumpy(**{k: v for k, v in kwargs.items() if k != "device"})
+    fn.set_weights(weights)
+    numpy_err = 0.0
+    for t in few[:2]:
+        chain = dense_forward(fm.net.event_layers, fm.params, frames[t], "numpy", alpha=0.1)
+        want = next(reversed(chain.values())).permute(1, 2, 0).reshape(fm.grid_shape)
+        numpy_err = max(numpy_err, float(np.abs(fn.forward(frames[t].cpu().numpy())
+                                                 - want.cpu().numpy()).max()))
+    require(numpy_err <= OUT_TOL, f"YoloFrameNumpy differs from the 'numpy' chain by {numpy_err}")
+
+    # post-processing: decode, NMS on the card against the host, mAP
+    num_classes, num_bbox = kwargs["num_classes"], kwargs["num_bbox"]
+    boxes, scores, probs = head.decode(outs, num_classes, num_bbox, H, W)
+    thr = float(torch.quantile(scores.flatten().float(), 0.9))
+    kept = 0
+    for t in few:
+        valid = scores[t] > thr
+        keep = nms_torch(boxes[t], scores[t], valid, 0.5)
+        host = nms(boxes[t].cpu().numpy(), scores[t].cpu().numpy(), valid.cpu().numpy(), 0.5)
+        require(np.array_equal(np.where(keep.cpu().numpy())[0], np.sort(host)),
+                f"nms_torch on the card keeps other boxes than nms on the host (frame {t})")
+        kept += len(host)
+    pthr = float(torch.quantile(probs.flatten().float(), 0.99))
+    preds = [decode_predictions(outs[t], num_classes, num_bbox, H, W, conf_threshold=pthr)
+             for t in few]
+    host_preds = [decode_predictions(outs[t].cpu().numpy(), num_classes, num_bbox, H, W,
+                                     conf_threshold=pthr) for t in few]
+    # the boxes come from divisions by scalars, which the card's kernels
+    # may round otherwise than the host's in the last bit; scores and
+    # classes are products and selections, the same on both
+    box_err = max((float(np.abs(p[0] - q[0]).max()) if len(p[0]) else 0.0)
+                  for p, q in zip(preds, host_preds))
+    require(all(p[0].shape == q[0].shape and np.array_equal(p[1], q[1])
+                and np.array_equal(p[2], q[2]) for p, q in zip(preds, host_preds))
+            and box_err <= 1e-3,
+            "decode_predictions of the card's grids differs from the same grids on the host")
+    # synthetic ground truth: three seeded boxes of 10-60 pixels a frame
+    grng = np.random.RandomState(7)
+    gts = [(np.concatenate([grng.rand(3, 2) * (W, H), grng.rand(3, 2) * 50 + 10],
+                           1).astype(np.float32), grng.randint(0, num_classes, 3))
+           for _ in few]
+    result = evaluate_detections(preds, gts, num_classes)
+    n_det = sum(len(p[0]) for p in preds)
+    require(n_det > 0 and 0.0 <= result["mAP"] <= 1.0
+            and sum(result["num_gt_per_class"]) == 3 * len(few),
+            f"evaluate_detections gave {result} over {n_det} detections")
+    print(f"frame: integrate_frame chained over the {T_CHUNKS} chunks of a dispatch on the card, "
+          f"bit-equal to the event path's surfaces; YoloFrameTorch at 'highest' on all "
+          f"{T_CHUNKS} frames within {ev_err:.3e} of YoloEventTorch's 'full' grids and within "
+          f"{cpu_err:.3e} of itself on the CPU ({len(few)} frames); YoloFrameNumpy within "
+          f"{numpy_err:.3e} of the dense 'numpy' chain (2 frames); "
+          f"{T_CHUNKS / wall:.1f} frames/s, p50 {float(np.median(per_frame)):.3f} ms a frame "
+          f"(CUDA events, one frame a call); nms_torch == nms on {len(few)} frames "
+          f"({kept} boxes kept); decode_predictions on the card equal to the host's (boxes within "
+          f"{box_err:.2e} px); mAP "
+          f"{result['mAP']:.4f} of {n_det} detections against {3 * len(few)} synthetic "
+          f"boxes (random weights); card {smi!r}", flush=True)
+    return {"frames_per_s": T_CHUNKS / wall, "p50_ms": float(np.median(per_frame))}
+
+
+def windowed_stream(rng, steps, events_per_step, win, rate_us=15):
+    """Each chunk's events inside one random ``win`` x ``win`` box."""
+    n = steps * events_per_step
+    ts = np.cumsum(rng.randint(1, rate_us, size=n)).astype(np.int32)
+    oy = np.repeat(rng.randint(0, H - win + 1, steps), events_per_step)
+    ox = np.repeat(rng.randint(0, W - win + 1, steps), events_per_step)
+    y = (oy + rng.randint(0, win, n)).astype(np.int32)
+    x = (ox + rng.randint(0, win, n)).astype(np.int32)
+    return np.stack([y, x, ts], axis=-1)
+
+
+def fitting_chunks(events, win) -> int:
+    """Chunks whose events fit a ``win`` x ``win`` box (the JAX package's
+    test of its windowed ts maps)."""
+    ch = events.reshape(-1, CAPACITY, 3)
+    span = ch[:, :, :2].max(axis=1) - ch[:, :, :2].min(axis=1)
+    return int(((span[:, 0] < win) & (span[:, 1] < win)).sum())
+
+
+def ts_window_phase(model, smi):
+    """Phase 20: ``scan_parallel(ts_window=(16, 16),
+    integrate_engine='tsmap')`` (K2) on a clustered stream, on a dispatch
+    whose chunks all fit the window and on one where a chunk overflows it,
+    each against the 'events' engine (K1)."""
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    win = 16
+    fit = windowed_stream(np.random.RandomState(6), T_CHUNKS, CAPACITY, win)
+    over = fit.copy()
+    over[7 * CAPACITY, :2] = (0, 0)  # chunk 7 spans the frame
+    over[7 * CAPACITY + 1, :2] = (H - 1, W - 1)
+    cases = {"clustered r=8": clustered_stream(np.random.RandomState(5), T_CHUNKS, CAPACITY),
+             "all fit": fit, "one overflows": over}
+    st0 = model.init_state()
+    parts = []
+    for name, events in cases.items():
+        chunks = pack_chunks(events, CAPACITY, device=model.device)
+        sc.reset_launches()
+        st_w, out_w = model.net.scan_parallel(model.params, st0, chunks, ts_window=(win, win),
+                                              integrate_engine="tsmap")
+        torch.cuda.synchronize()
+        launches = dict(sc.LAUNCHES)
+        require(launches == {"surface_scan_events": 0, "surface_scan_tsmap": 1},
+                f"ts_window path ({name}) launches {launches}")
+        st_e, out_e = model.net.scan_parallel(model.params, st0, chunks)
+        require(bit_equal(st_w[0].surface, st_e[0].surface)
+                and float((out_w - out_e).abs().max()) <= OUT_TOL,
+                f"ts_window ({name}) differs from the 'events' engine")
+        parts.append(f"{name} ({fitting_chunks(events, win)} of {T_CHUNKS} chunks fit): "
+                     f"launches {launches}")
+    print(f"ts-window: scan_parallel(ts_window=({win}, {win}), integrate_engine='tsmap') "
+          "surfaces bit-equal and outputs within "
+          f"{OUT_TOL} of the 'events' engine's: " + "; ".join(parts) + f"; card {smi!r}",
+          flush=True)
+
+
+def maxplus_phase(model, c0, k1_info, smi):
+    """Phase 21: the full-width T=200 dispatch through the 'maxplus' engine
+    against 'events', with the device time of both integrate calls."""
+    from async_ev_cnn_torch.ops import integrate as it
+
+    dev = model.device
+    s0 = torch.from_numpy(
+        (np.round(np.random.RandomState(0).rand(1, H, W) * 2**20) / 2**20).astype(
+            np.float32)).to(dev)
+    mp, lt_m = it.integrate_parallel(s0, 0, c0, LEAK, engine="maxplus")
+    ev, lt_e = it.integrate_parallel(s0, 0, c0, LEAK, engine="events")
+    err = float((mp - ev).abs().max())
+    require(err <= 1e-6 and torch.equal(lt_m, lt_e),
+            f"'maxplus' differs from 'events' by {err} at full width")
+    st0 = model.init_state()
+    st_m, out_m = model.net.scan_parallel(model.params, st0, c0, integrate_engine="maxplus")
+    st_e, out_e = model.net.scan_parallel(model.params, st0, c0)
+    out_err = float((out_m - out_e).abs().max())
+    require(out_err <= OUT_TOL, f"'maxplus' dispatch outputs differ by {out_err}")
+    mp_ms = device_ms(lambda: it.integrate_parallel(s0, 0, c0, LEAK, engine="maxplus"))
+    ev_ms = device_ms(lambda: it.integrate_parallel(s0, 0, c0, LEAK, engine="events"))
+    print(f"maxplus: integrate_parallel(engine='maxplus') at C=1 {H}x{W} T={T_CHUNKS} within "
+          f"{err:.3e} of 'events' (surfaces), the dispatch's outputs within {out_err:.3e}; "
+          f"device time of a call {mp_ms:.4f} ms against the 'events' engine's {ev_ms:.4f} ms "
+          f"(K1 {k1_info['ms']:.4f} ms + the winner dedup {k1_info['front_ms']:.4f} ms in "
+          f"phase 3); card {smi!r}", flush=True)
+    return {"maxplus_ms": mp_ms, "events_ms": ev_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1514,6 +1827,11 @@ def main() -> int:
     gather_copy = gather_copy_phase(dev)
     stem_path_phase(model, c0, smi)
     tier_phase(dev, args, layer_defs, num_classes, num_bbox, c0, smi)
+    kwargs = yolo_kwargs(args, layer_defs, num_classes, num_bbox, dev)
+    checkpoint_phase(model, kwargs, items, smi)
+    frame_phase(model, kwargs, items, smi)
+    ts_window_phase(model, smi)
+    maxplus_phase(model, c0, k1_info, smi)
 
     scans = [
         {"name": "surface_scan_events", "replaces": "async_ev_cnn_tpu/ops/pallas_scan.py:273",
@@ -1539,10 +1857,40 @@ def main() -> int:
     return 0
 
 
+def path_rates(dev, runs: int = 3) -> list:
+    """Phase 4's path, events/s over dispatches 2..16 of ``runs`` fresh
+    pipelines, through the public entry points a parent commit shares."""
+    from async_ev_cnn_torch.models.yolo import YoloEventTorch
+    from async_ev_cnn_torch.utils.config import config
+    from async_ev_cnn_torch.utils.serving import StreamingPipeline
+
+    args = config(["-c", str(HERE / "configs" / "efcn_event.yml")])
+    layer_defs = args.yolo_cnn_layers
+    num_classes = list(layer_defs.values())[-1][3] - args.yolo_num_bbox * 5
+    model = YoloEventTorch(
+        args.frame_h, args.frame_w, num_classes, layer_defs, args.yolo_cnn_padding,
+        args.yolo_num_cells_h, args.yolo_num_cells_w, args.yolo_num_bbox, alpha=0.1,
+        leak=args.leak, conv_mode="full", device=dev)
+    model.set_weights(make_params(layer_defs, np.random.RandomState(0)))
+    items = np.split(synth_stream(np.random.RandomState(1), DISPATCHES * T_CHUNKS, CAPACITY),
+                     DISPATCHES)
+    rates = []
+    for _ in range(runs):
+        pipe = StreamingPipeline(model.net, model.params, capacity=CAPACITY,
+                                 t_chunks=T_CHUNKS, wire="plain", max_in_flight=2, device=dev)
+        list(pipe.serve(items[:1]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rest = list(pipe.serve(items[1:]))
+        torch.cuda.synchronize()
+        rates.append(sum(r.n_events for r in rest) / (time.perf_counter() - t0))
+    return rates
+
+
 def kernel_times() -> dict:
-    """K2 and K6 at the main path's shapes by device time, with the
-    package that ``sys.path`` finds: the worker of :func:`compare`.  Only
-    the wrappers' public calls, which a parent commit shares."""
+    """K2 and K6 at the main path's shapes by device time, and phase 4's
+    path by events/s, with the package that ``sys.path`` finds: the worker
+    of :func:`compare`.  Only public calls, which a parent commit shares."""
     from async_ev_cnn_torch.ops import cuda_build
     from async_ev_cnn_torch.ops import fused_stem as tf
     from async_ev_cnn_torch.ops import integrate as it
@@ -1577,13 +1925,15 @@ def kernel_times() -> dict:
             "k2_ms": device_ms(k2, "scan_tsmap_kernel"), "k2_call_ms": time_ms(k2, 50),
             "k6_ms": device_ms(k6), "k6_kernel_ms": device_ms(k6, "fused_stem_kernel"),
             "k6_call_ms": time_ms(k6, 50),
-            "k6_sass_per_px_ch": None if sass is None else sass[3]}
+            "k6_sass_per_px_ch": None if sass is None else sass[3],
+            "path_events_s": path_rates(dev)}
 
 
 def compare(parent: Path) -> int:
-    """K2 and K6 of the checkout at ``parent`` against this one's on one
-    card, in the order parent, this, this, parent: each a process of its
-    own that imports its tree's package and builds its kernels."""
+    """K2, K6 and phase 4's path of the checkout at ``parent`` against this
+    one's on one card, in the order parent, this, this, parent: each a
+    process of its own that imports its tree's package and builds its
+    kernels."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -1600,7 +1950,8 @@ def compare(parent: Path) -> int:
     print(f"compare: card {smi!r}; " + "; ".join(
         f"{r['tree']}: K2 device {r['k2_ms']:.5f} ms (a call {r['k2_call_ms']:.4f}), K6 device "
         f"{r['k6_ms']:.5f} ms (kernel {r['k6_kernel_ms']:.5f}, a call {r['k6_call_ms']:.4f}, "
-        f"SASS a pooled pixel and channel {r['k6_sass_per_px_ch']})" for r in rows))
+        f"SASS a pooled pixel and channel {r['k6_sass_per_px_ch']}), phase 4's path "
+        f"{', '.join(f'{x:.0f}' for x in r['path_events_s'])} events/s" for r in rows))
     return 0
 
 

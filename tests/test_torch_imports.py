@@ -57,7 +57,8 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     """With no device given and no CUDA device present, the entry points
     raise instead of running on the CPU; device='cpu' is the explicit way."""
     from async_ev_cnn_torch.layers.network import EventNetwork
-    from async_ev_cnn_torch.models.yolo import YoloEventTorch
+    from async_ev_cnn_torch.models.yolo import YoloEventTorch, YoloFrameTorch
+    from async_ev_cnn_torch.ops.integrate import integrate_frame, integrate_frame_chunked
     from async_ev_cnn_torch.utils.config import layers_dict
     from async_ev_cnn_torch.scripts import test_correctness
     from async_ev_cnn_torch.utils.equivalence import make_stream, run_equivalence
@@ -75,6 +76,9 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     for call in (lambda: net.init_state(params),
                  lambda: StreamingPipeline(net, params),
                  lambda: YoloEventTorch(**kw),
+                 lambda: YoloFrameTorch(**kw),
+                 lambda: integrate_frame(events, 1e-3, 8, 8),
+                 lambda: integrate_frame_chunked(events, 1e-3, 8, 8),
                  lambda: pack_chunks(events, 4),
                  lambda: make_stream(np.random.RandomState(0), 3, 2, 8, 8),
                  lambda: run_equivalence(net, params, chunks),
@@ -84,6 +88,8 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     assert net.init_state(params, "cpu")[0].surface.device.type == "cpu"
     assert StreamingPipeline(net, params, device="cpu").device.type == "cpu"
     assert YoloEventTorch(**kw, device="cpu").device.type == "cpu"
+    assert YoloFrameTorch(**kw, device="cpu").device.type == "cpu"
+    assert integrate_frame(events, 1e-3, 8, 8, device="cpu")[0].device.type == "cpu"
     assert chunks.y.device.type == "cpu"
     assert max(run_equivalence(net, params, chunks, device="cpu").max_diff.values()) == 0.0
     assert test_correctness.main(["--iterations", "20", "--device", "cpu",

@@ -313,7 +313,7 @@ def test_pipeline_bookkeeping(rng):
         list(tserving.threaded_source(lambda: iter(range(4)), fn=boom))
 
 
-def test_pipeline_slice_limits(rng):
+def test_pipeline_slice_limits(rng, tmp_path):
     tn, _ = _nets()
     params = params_from_jax(_params(DSL, rng), "cpu")
     for kw, exc, match in ((dict(wire="auto"), NotImplementedError, "wire"),
@@ -329,10 +329,14 @@ def test_pipeline_slice_limits(rng):
     model_kw = dict(h_frame=H, w_frame=W, num_classes=2, cnn_layers=layers_dict(DSL),
                     cnn_padding="SAME", h_cells=4, w_cells=4, num_bbox=2, alpha=0.1,
                     leak=1e-4, device="cpu")
-    for kw, match in ((dict(checkpoint="x.npz"), "checkpoint"),
-                      (dict(ts_window=8), "ts_window")):
-        with pytest.raises(NotImplementedError, match=match):
+    # the model takes checkpoints and ts_window: a missing checkpoint fails
+    # loudly, a window below 1 is refused, a valid one is taken
+    missing = str(tmp_path / "missing.npz")
+    for kw, exc, match in ((dict(checkpoint=missing), FileNotFoundError, "missing.npz"),
+                           (dict(ts_window=0), ValueError, "ts_window")):
+        with pytest.raises(exc, match=match):
             YoloEventTorch(**model_kw, **kw)
+    assert YoloEventTorch(**model_kw, ts_window=8)._ts_window == (8, 8)
     # an incremental model's scan takes the sequential engine
     m = YoloEventTorch(**model_kw, conv_mode="dense")
     m.set_weights(_params(DSL, rng))
