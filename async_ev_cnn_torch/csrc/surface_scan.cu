@@ -72,7 +72,8 @@ __device__ __forceinline__ int warp_inclusive_sum(int v) {
 // chunk's winners by a bf16 one-hot matrix product with 8-bit dt limbs.
 // Here two kernels, launched back to back by one call:
 //
-//   1. bin_events_kernel, one block per chunk t, sorts the chunk's winners
+//   1. bin_events_kernel, one block per chunk t of each stream s (a flat
+//      row s * t_len + t), sorts the chunk's winners
 //      by pixel tile (kTile pixels): a shared-memory histogram, a block
 //      scan to bucket starts, written as offsets[t][0..n_tiles], and each
 //      winner written to its bucket as (pixel within the tile, its
@@ -81,8 +82,8 @@ __device__ __forceinline__ int warp_inclusive_sum(int v) {
 //      after the dedup of ops/integrate.chunk_event_updates a pixel has at
 //      most one winner a chunk: each contribution lands in one place
 //      whatever the order, and the output is bit-exact.
-//   2. scan_events_kernel, one block per tile, walks T in windows of
-//      kWindow chunks.  Per window, warp 0 reads the tile's bucket of each
+//   2. scan_events_kernel, one block per tile and stream (blockIdx.x the
+//      tile, blockIdx.y the stream), walks T in windows of kWindow chunks.  Per window, warp 0 reads the tile's bucket of each
 //      chunk (two chunks a lane) and scans their lengths; after one
 //      barrier the block scatters the window's events into a shared
 //      [kWindow, kTile] contribution array (each event a flat position
@@ -97,7 +98,16 @@ __device__ __forceinline__ int warp_inclusive_sum(int v) {
 // meets two barriers a window.  Bound: the T*P*4 bytes of surfaces written,
 // plus the P*4 B surface, the T*E*8 B of winner lists and the T*4 B of
 // decrements read once; the binned lists (T*E*8 B) and offsets (T*(n_tiles
-// + 1)*4 B) are written and read once more.
+// + 1)*4 B) are written and read once more.  All of it S times over with a
+// stream axis.
+//
+// The stream axis is the batching rule of the TPU kernel under jax.vmap
+// (multi-stream serving): a leading grid axis over S streams, each with its
+// own surface, [T] decrements and [T, E] lists.  Here it is one more grid
+// dimension of each launch, so a dispatch of S streams is still two
+// launches: S times the blocks, not S times the launches.  A stream's
+// blocks offset every pointer by the stream and then run the one-stream
+// code unchanged, so each stream is bit-equal to a call of its own.
 
 __global__ void __launch_bounds__(kBinThreads)
 bin_events_kernel(const int32_t* __restrict__ pix, const int32_t* __restrict__ dt,
@@ -106,6 +116,8 @@ bin_events_kernel(const int32_t* __restrict__ pix, const int32_t* __restrict__ d
   extern __shared__ int32_t bucket[];  // [n_tiles + 1]: counts, then starts
   __shared__ int32_t warp_total[kBinThreads / 32];
   const int n = n_tiles + 1;
+  // blockIdx.x is the flat (stream, chunk) row: the [S, T, E] lists and the
+  // [S, T, n] offsets are [S * T]-row arrays
   const size_t row = static_cast<size_t>(blockIdx.x) * e_len;
   for (int j = threadIdx.x; j < n; j += kBinThreads) bucket[j] = 0;
   __syncthreads();
@@ -150,6 +162,13 @@ __global__ void __launch_bounds__(kTile)
 scan_events_kernel(const float* __restrict__ s0, const int2* __restrict__ entries,
                    const int32_t* __restrict__ offsets, const float* __restrict__ d,
                    float* __restrict__ out, int t_len, int e_len, int p_len, int n_tiles) {
+  // this block's stream: every array from here on is that stream's own
+  const size_t stream = blockIdx.y;
+  s0 += stream * p_len;
+  entries += stream * t_len * e_len;
+  offsets += stream * t_len * (n_tiles + 1);
+  d += stream * t_len;
+  out += stream * t_len * p_len;
   __shared__ float contrib[kWindow][kTile];
   __shared__ int seg_pre[kWindow + 1];  // exclusive prefix of the buckets' lengths
   __shared__ int seg_base[kWindow];     // entry index of flat position 0 of the bucket
@@ -288,17 +307,22 @@ scan_tsmap_kernel(const float* __restrict__ s0, const int32_t* __restrict__ ts_m
 // current stream.  The caller never passes t_len or p_len of 0 (the
 // wrapper returns its empty output unlaunched).
 
-// K1: the binning pass, then the scan.  workspace: int32, the [t_len,
-// e_len] binned entries (two words each) and then the [t_len, n_tiles + 1]
-// bucket offsets.  tile, window, n_tiles and bin_smem_bytes come from the
-// plan (ops/surface_scan.scan_events_plan) and must be this source's.
+// K1: the binning pass, then the scan, over s_len streams (1 without a
+// stream axis): s0 [s_len, p_len], pix and dt [s_len, t_len, e_len], d
+// [s_len, t_len], out [s_len, t_len, p_len].  workspace: int32, the
+// [s_len, t_len, e_len] binned entries (two words each) and then the
+// [s_len, t_len, n_tiles + 1] bucket offsets, fewer than 2^31 words in all
+// (the scan indexes a stream's entries with int).  tile, window, n_tiles
+// and bin_smem_bytes come from the plan (ops/surface_scan.
+// scan_events_plan) and must be this source's.
 extern "C" int surface_scan_events(const float* s0, const int32_t* pix,
                                    const int32_t* dt, const float* d, float* out,
-                                   int32_t* workspace, int t_len, int e_len, int p_len,
-                                   float leak, int tile, int window, int n_tiles,
+                                   int32_t* workspace, int s_len, int t_len, int e_len,
+                                   int p_len, float leak, int tile, int window, int n_tiles,
                                    int bin_smem_bytes, cudaStream_t stream) {
   if (tile != kTile || window != kWindow || n_tiles != (p_len + kTile - 1) / kTile ||
-      bin_smem_bytes != static_cast<int>(sizeof(int32_t)) * (n_tiles + 1))
+      bin_smem_bytes != static_cast<int>(sizeof(int32_t)) * (n_tiles + 1) || s_len < 1 ||
+      s_len > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bin_smem_bytes > 48 * 1024) {  // above the default limit: opt in
     const cudaError_t opt_in = cudaFuncSetAttribute(
@@ -306,13 +330,14 @@ extern "C" int surface_scan_events(const float* s0, const int32_t* pix,
     if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   }
   int2* entries = reinterpret_cast<int2*>(workspace);
-  int32_t* offsets = workspace + 2 * static_cast<size_t>(t_len) * e_len;
-  bin_events_kernel<<<t_len, kBinThreads, bin_smem_bytes, stream>>>(
+  const int rows = s_len * t_len;  // < 2^31: the workspace holds 2 words a row entry
+  int32_t* offsets = workspace + 2 * static_cast<size_t>(rows) * e_len;
+  bin_events_kernel<<<rows, kBinThreads, bin_smem_bytes, stream>>>(
       pix, dt, entries, offsets, e_len, p_len, n_tiles, leak);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  scan_events_kernel<<<n_tiles, kTile, 0, stream>>>(s0, entries, offsets, d, out, t_len,
-                                                    e_len, p_len, n_tiles);
+  scan_events_kernel<<<dim3(n_tiles, s_len), kTile, 0, stream>>>(s0, entries, offsets, d, out,
+                                                                 t_len, e_len, p_len, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -414,7 +414,17 @@ class EventNetwork:
         ``integrate_engine`` selects the surface-reconstruction engine
         ('auto' | 'events' | 'tsmap' | 'maxplus').
 
-        Returns ``(new_state, outputs [T, ...])``.
+        ``chunks`` may carry a leading stream axis (``[S, T, E]`` fields,
+        every leaf of ``state`` ``[S, ...]``): the JAX package's
+        ``jax.vmap(net.scan_parallel)`` (multi-stream serving), with the
+        stream axis written out.  Each window then reconstructs all S*T
+        surfaces in one :func:`~async_ev_cnn_torch.ops.integrate.
+        integrate_parallel` call (one K1 call on the 'events' engine) and
+        runs the conv stack once over the S*T frames, not once a stream;
+        the window budget is the whole dispatch's, as under ``vmap``.
+
+        Returns ``(new_state, outputs [T, ...])`` (``[S, T, ...]`` with a
+        stream axis, each stream equal to a call of its own).
         """
         if not self.is_all_full:
             bad = [
@@ -427,7 +437,9 @@ class EventNetwork:
                 f"layer; got {', '.join(bad)}"
             )
         leak = self.event_layers[0].spec.leak
-        t = chunks.y.shape[0]
+        streams = chunks.y.dim() == 3
+        tax = int(streams)  # the time axis of the chunks and the outputs
+        t = chunks.y.shape[tax]
         if window is None and window_budget_mb is not None:
             window = self.auto_window(t, window_budget_mb)
         if window is None or window >= t:
@@ -435,13 +447,16 @@ class EventNetwork:
         surf, pts = state[0].surface, state[0].prev_ts
         outs = []
         for a in range(0, t, window):
-            cs = EventChunk(*(f[a:a + window] for f in chunks))
+            cs = EventChunk(*(f.narrow(tax, a, min(window, t - a)) for f in chunks))
             surfaces, last_ts = integrate_parallel(
                 surf, pts, cs, leak, ts_window=ts_window, engine=integrate_engine)
-            outs.append(self.full_frame_forward(params, state, surfaces))
+            # the conv stack runs once over every frame of the window
+            frames = surfaces.flatten(0, 1) if streams else surfaces
+            out = self.full_frame_forward(params, state, frames)
+            outs.append(out.unflatten(0, surfaces.shape[:2]) if streams else out)
             # clone: a view would keep the window's whole surface stack alive
-            surf, pts = surfaces[-1].clone(), last_ts[-1].clone()
-        outs = outs[0] if len(outs) == 1 else torch.cat(outs)
+            surf, pts = surfaces.select(tax, -1).clone(), last_ts.select(tax, -1).clone()
+        outs = outs[0] if len(outs) == 1 else torch.cat(outs, dim=tax)
         return (IntegrationState(surf, pts),) + tuple(state[1:]), outs
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from async_ev_cnn_torch.layers.types import EventChunk
 from async_ev_cnn_torch.ops.numerics import float32_scalar, snap
 from async_ev_cnn_torch.ops.surface_scan import (
     TS_SENTINEL_VALUE,
@@ -105,15 +106,16 @@ def integrate_step(surface, prev_ts, y, x, ts, valid, leak: float, p=None):
 def _ts_chain(prev_ts, chunks, leak):
     """Per-chunk running last-event timestamps and snapped leak decrements.
 
-    Returns ``(last_ts [T] int32, d [T] f32)``.  All-padding chunks keep
-    the previous last_ts, making them exact identity updates.
+    Returns ``(last_ts [T] int32, d [T] f32)``, or ``[S, T]`` for chunks
+    ``[S, T, E]`` and ``prev_ts`` ``[S]`` (the stream axis).  All-padding
+    chunks keep the previous last_ts, making them exact identity updates.
     """
     dev = chunks.ts.device
-    prev_ts = _i32(prev_ts, dev)
+    prev_ts = _i32(prev_ts, dev)[..., None]  # [(S,) 1]
     chunk_max = torch.where(chunks.valid, chunks.ts.to(torch.int32),
-                            TS_SENTINEL_VALUE).amax(dim=1)
-    last_ts = torch.cummax(torch.maximum(chunk_max, prev_ts), dim=0).values
-    prev_last = torch.cat([prev_ts.reshape(1), last_ts[:-1]])
+                            TS_SENTINEL_VALUE).amax(dim=-1)
+    last_ts = torch.cummax(torch.maximum(chunk_max, prev_ts), dim=-1).values
+    prev_last = torch.cat([prev_ts, last_ts[..., :-1]], dim=-1)
     d = snap((last_ts - prev_last).float() * float32_scalar(leak, "cpu"))
     return last_ts, d
 
@@ -131,7 +133,9 @@ def chunk_event_updates(channels, h, w, prev_ts, chunks, leak):
       timestamps; 0 for non-winners).
 
     Returns ``(pix, dt, d, last_ts)``: int32 ``[T, E]`` event tensors and
-    the ``[T]`` scalar chains.
+    the ``[T]`` scalar chains.  With a leading stream axis (chunks ``[S, T,
+    E]``, ``prev_ts`` ``[S]``) every output gains it, each stream equal to
+    a call of its own (the JAX package's ``vmap``).
     """
     last_ts, d = _ts_chain(prev_ts, chunks, leak)
     dev = chunks.ts.device
@@ -144,19 +148,19 @@ def chunk_event_updates(channels, h, w, prev_ts, chunks, leak):
         p = chunks.p.to(torch.int32)
         ch = p.clamp(0, channels - 1)
         valid = chunks.valid & (p >= 0) & (p < channels)
-    pix = torch.where(valid, ch * (h * w) + yi * w + xi, -1)  # [T, E]
+    pix = torch.where(valid, ch * (h * w) + yi * w + xi, -1)  # [(S,) T, E]
 
     ts_b = torch.where(valid, chunks.ts.to(torch.int32), TS_SENTINEL_VALUE)
-    idx = torch.arange(pix.shape[1], device=dev)
-    same = (pix[:, :, None] == pix[:, None, :]) & valid[:, None, :]
-    later = (ts_b[:, None, :] > ts_b[:, :, None]) | (
-        (ts_b[:, None, :] == ts_b[:, :, None])
-        & (idx[None, None, :] > idx[None, :, None])
+    idx = torch.arange(pix.shape[-1], device=dev)
+    same = (pix[..., :, None] == pix[..., None, :]) & valid[..., None, :]
+    later = (ts_b[..., None, :] > ts_b[..., :, None]) | (
+        (ts_b[..., None, :] == ts_b[..., :, None])
+        & (idx[None, :] > idx[:, None])
     )
-    keep = valid & ~(same & later).any(dim=2)  # [T, E]
+    keep = valid & ~(same & later).any(dim=-1)  # [(S,) T, E]
 
     pix = torch.where(keep, pix, -1)
-    dt = torch.where(keep, last_ts[:, None] - ts_b, 0)
+    dt = torch.where(keep, last_ts[..., None] - ts_b, 0)
     return pix, dt, d, last_ts
 
 
@@ -285,21 +289,34 @@ def integrate_parallel(surface, prev_ts, chunks, leak: float,
     :func:`integrate_step`.
 
     Args:
-      surface: f32 ``[C, H, W]`` surface at the window start.
-      prev_ts: int32 scalar, last event timestamp before the window.
-      chunks: stacked :class:`EventChunk` with leading time axis ``[T, E]``.
+      surface: f32 ``[C, H, W]`` surface at the window start, or ``[S, C,
+        H, W]`` with a leading stream axis (multi-stream serving; the JAX
+        package ``vmap``s this function over it).
+      prev_ts: int32 scalar (``[S]``), last event timestamp before the window.
+      chunks: stacked :class:`EventChunk` with leading time axis ``[T, E]``
+        (``[S, T, E]``).
       leak: leak rate per microsecond.
       ts_window: optional ``(wh, ww)``, the JAX package's bounding window
         of the ts maps; the 'events' engine ignores it, as there, and the
         others compute the same maps with or without it
         (:func:`chunk_ts_maps`).
-      engine: ``'auto' | 'events' | 'tsmap' | 'maxplus'``.
+      engine: ``'auto' | 'events' | 'tsmap' | 'maxplus'``.  With the stream
+        axis 'events' places every stream's winners in one call of K1 (its
+        stream axis); 'tsmap' and 'maxplus' run stream by stream.
 
     Returns:
       ``(surfaces, last_ts)``: f32 ``[T, C, H, W]`` surfaces after each
-      chunk and the int32 ``[T]`` per-chunk last-event timestamps.
+      chunk and the int32 ``[T]`` per-chunk last-event timestamps (``[S, T,
+      C, H, W]`` and ``[S, T]`` with the stream axis), each stream equal to
+      a call of its own.
     """
-    channels, h, w = surface.shape
+    if surface.dim() == 4 and engine not in ("auto", "events"):
+        prev = _i32(prev_ts, surface.device)
+        runs = [integrate_parallel(surface[i], prev[i], EventChunk(*(f[i] for f in chunks)),
+                                   leak, ts_window=ts_window, engine=engine)
+                for i in range(surface.shape[0])]
+        return torch.stack([r[0] for r in runs]), torch.stack([r[1] for r in runs])
+    channels, h, w = surface.shape[-3:]
     if engine in ("auto", "events"):
         pix, dt, d, last_ts = chunk_event_updates(
             channels, h, w, prev_ts, chunks, leak)

@@ -14,7 +14,10 @@ PyTorch version of the same arithmetic:
 
 Both are bit-identical to iterating ``ops.integrate.integrate_step``.  K1
 is two launches, a binning pass and the scan, cut by
-:func:`scan_events_plan`; K2 one, cut by :func:`scan_tsmap_plan`.  A
+:func:`scan_events_plan`; K2 one, cut by :func:`scan_tsmap_plan`.  K1 also
+takes a leading stream axis (multi-stream serving, where the JAX package
+runs its kernel under ``vmap``): S streams are still two launches, each
+stream bit-equal to a call of its own.  A
 wrapper runs its plain version for tensors on the CPU, and the kernel for
 tensors on the card — or raises; it never falls back.  ``LAUNCHES`` counts
 wrapper calls that launched their kernels, so a run can show that it went
@@ -35,8 +38,10 @@ from async_ev_cnn_torch.ops.cuda_build import on_cpu as _on_cpu
 from async_ev_cnn_torch.ops.cuda_build import ptr as _ptr
 from async_ev_cnn_torch.ops.numerics import float32_scalar, snap
 
-#: kernel launches per wrapper since the counts were last reset
-LAUNCHES = {"surface_scan_events": 0, "surface_scan_tsmap": 0}
+#: kernel launches per wrapper since the counts were last reset; K1's calls
+#: with a stream axis count under "surface_scan_events_streams"
+LAUNCHES = {"surface_scan_events": 0, "surface_scan_events_streams": 0,
+            "surface_scan_tsmap": 0}
 
 #: int32 timestamp meaning "no event at this pixel" (the JAX package's value)
 TS_SENTINEL_VALUE = -(2**31) + 1
@@ -65,7 +70,11 @@ def _clamp0(s: torch.Tensor) -> torch.Tensor:
 
 def surface_scan_events_plain(surface, pix, dt, d, leak: float) -> torch.Tensor:
     """Plain PyTorch version of :func:`surface_scan_events`: a loop over T
-    with ``index_put_`` of each chunk's winners."""
+    with ``index_put_`` of each chunk's winners (and, with a stream axis, a
+    loop over the streams)."""
+    if surface.dim() == 4:
+        return torch.stack([surface_scan_events_plain(surface[i], pix[i], dt[i], d[i], leak)
+                            for i in range(surface.shape[0])])
     c, h, w = surface.shape
     t = pix.shape[0]
     p = c * h * w
@@ -105,11 +114,11 @@ def surface_scan_tsmap_plain(surface, ts_map, d, last_ts, leak: float) -> torch.
 
 class ScanEventsPlan(NamedTuple):
     """How one K1 call is cut: ``n_tiles`` tiles of ``tile`` pixels (the
-    last one ragged), each a block of the scan walking T in ``n_windows``
-    windows of ``window`` chunks (the last one ragged); the binning pass's
-    dynamic shared memory (a bucket start per tile, and one more); and the
-    int32 workspace: ``[T, E]`` binned entries of two words, then
-    ``[T, n_tiles + 1]`` bucket offsets."""
+    last one ragged), each a block of the scan (one a stream) walking T in
+    ``n_windows`` windows of ``window`` chunks (the last one ragged); the
+    binning pass's dynamic shared memory (a bucket start per tile, and one
+    more); and the int32 workspace: ``[S, T, E]`` binned entries of two
+    words, then ``[S, T, n_tiles + 1]`` bucket offsets."""
     tile: int
     window: int
     n_tiles: int
@@ -118,23 +127,27 @@ class ScanEventsPlan(NamedTuple):
     workspace: int
 
 
-def scan_events_plan(t: int, e: int, p: int) -> ScanEventsPlan:
+def scan_events_plan(t: int, e: int, p: int, s: int = 1) -> ScanEventsPlan:
     """K1's launch plan for ``T = t`` chunks of ``E = e`` winners over ``P =
-    p`` pixels.  The tile is 128 pixels: a block of 4 warps, a thread a
+    p`` pixels, for each of ``S = s`` streams.  The tile is 128 pixels: a block of 4 warps, a thread a
     pixel, so that the eFCN's 35,840 pixels give 280 blocks, about two an
     SM of the H100's 132 and all resident at once (the scan's parallelism
     is its pixels; time is serial).  The window is 64 chunks: its
     ``[64, 128]`` float contribution array is 32 KB, so a block's static
     shared memory stays under 48 KB and six blocks could share an SM, and
-    a T=200 dispatch crosses 4 windows, 8 barriers a block.  Raises where
-    the binning pass's buckets would not fit a block's shared memory."""
+    a T=200 dispatch crosses 4 windows, 8 barriers a block.  S streams
+    make S times the blocks of both passes in the same two launches.
+    Raises where the binning pass's buckets would not fit a block's shared
+    memory, or S a grid's y dimension (65,535)."""
     n_tiles = -(-p // SCAN_TILE)
     bin_smem = 4 * (n_tiles + 1)
     if bin_smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"{p} pixels make {n_tiles} tiles: their bucket starts "
                          f"({bin_smem} B) exceed a block's shared memory")
+    if not 1 <= s <= 65535:
+        raise ValueError(f"{s} streams: K1 takes 1 to 65,535 (its scan's grid y)")
     return ScanEventsPlan(SCAN_TILE, SCAN_WINDOW, n_tiles, -(-t // SCAN_WINDOW), bin_smem,
-                          2 * t * e + t * (n_tiles + 1))
+                          s * (2 * t * e + t * (n_tiles + 1)))
 
 
 class ScanTsmapPlan(NamedTuple):
@@ -168,41 +181,49 @@ def surface_scan_events(surface, pix, dt, d, leak: float) -> torch.Tensor:
     """All T chunk-boundary surfaces from per-event winner lists.
 
     Args:
-      surface: f32 ``[C, H, W]`` surface at the window start.
+      surface: f32 ``[C, H, W]`` surface at the window start, or ``[S, C,
+        H, W]``: one a stream (the stream axis).
       pix, dt: int32 ``[T, E]`` winner lists from
-        :func:`async_ev_cnn_torch.ops.integrate.chunk_event_updates`: the
-        flat ``C*H*W`` pixel index (``-1``: no event) and ``dt``.
-      d: f32 ``[T]`` per-chunk snapped leak decrements.
+        :func:`async_ev_cnn_torch.ops.integrate.chunk_event_updates` (``[S,
+        T, E]`` with the stream axis): the flat ``C*H*W`` pixel index
+        (``-1``: no event) and ``dt``.
+      d: f32 ``[T]`` (``[S, T]``) per-chunk snapped leak decrements.
       leak: leak rate per microsecond (applied as a float32).
 
     Returns:
-      f32 ``[T, C, H, W]`` surfaces after each chunk — bit-identical to
-      iterating ``integrate_step``.
+      f32 ``[T, C, H, W]`` (``[S, T, C, H, W]``) surfaces after each chunk —
+      bit-identical to iterating ``integrate_step``, stream by stream.
     """
     if _on_cpu(surface, pix, dt, d):
         return surface_scan_events_plain(surface, pix, dt, d, leak)
     dev = surface.device
-    _check("surface", surface, torch.float32, dev, 3)
-    _check("pix", pix, torch.int32, dev, 2)
-    _check("dt", dt, torch.int32, dev, 2)
-    _check("d", d, torch.float32, dev, 1)
-    c, h, w = surface.shape
-    t, e = pix.shape
-    if dt.shape != pix.shape or d.shape[0] != t:
-        raise ValueError(f"shape mismatch: pix {tuple(pix.shape)}, dt "
-                         f"{tuple(dt.shape)}, d {tuple(d.shape)}")
-    out = torch.empty((t, c, h, w), dtype=torch.float32, device=dev)
+    streams = surface.dim() == 4
+    lead = 1 if streams else 0
+    _check("surface", surface, torch.float32, dev, 3 + lead)
+    _check("pix", pix, torch.int32, dev, 2 + lead)
+    _check("dt", dt, torch.int32, dev, 2 + lead)
+    _check("d", d, torch.float32, dev, 1 + lead)
+    s = surface.shape[0] if streams else 1
+    c, h, w = surface.shape[lead:]
+    t, e = pix.shape[lead:]
+    if (dt.shape != pix.shape or d.shape != pix.shape[:-1]
+            or (streams and pix.shape[0] != s)):
+        raise ValueError(f"shape mismatch: surface {tuple(surface.shape)}, pix "
+                         f"{tuple(pix.shape)}, dt {tuple(dt.shape)}, d {tuple(d.shape)}")
+    out = torch.empty((*surface.shape[:lead], t, c, h, w), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out  # nothing to compute: no launch, nothing counted
-    plan = scan_events_plan(t, e, c * h * w)
+    plan = scan_events_plan(t, e, c * h * w, s)
     if plan.workspace >= 2**31:
         raise ValueError("K1 indexes its binned winner lists with int32")
     work = torch.empty(plan.workspace, dtype=torch.int32, device=dev)
-    _launch("surface_scan_events", dev, _ptr(surface), _ptr(pix), _ptr(dt),
-            _ptr(d), _ptr(out), _ptr(work), ctypes.c_int(t), ctypes.c_int(e),
-            ctypes.c_int(c * h * w), ctypes.c_float(np.float32(leak)),
-            *(ctypes.c_int(v) for v in (plan.tile, plan.window, plan.n_tiles,
-                                        plan.bin_smem_bytes)))
+    cuda_build.launch(
+        "surface_scan", "surface_scan_events", dev, _ptr(surface), _ptr(pix), _ptr(dt),
+        _ptr(d), _ptr(out), _ptr(work), ctypes.c_int(s), ctypes.c_int(t), ctypes.c_int(e),
+        ctypes.c_int(c * h * w), ctypes.c_float(np.float32(leak)),
+        *(ctypes.c_int(v) for v in (plan.tile, plan.window, plan.n_tiles,
+                                    plan.bin_smem_bytes)))
+    LAUNCHES["surface_scan_events_streams" if streams else "surface_scan_events"] += 1
     return out
 
 

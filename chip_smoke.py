@@ -141,9 +141,42 @@ engine, on the same full-width eFCN and seeded weights:
     1e-4, and the device time of both engines' integrate calls beside
     phase 3's K1 and winner dedup.
 
+Then the serving deployment (phase 23 runs right after phase 3, beside
+the one-stream kernels):
+
+22. wire: a T=200 stream fitting each tier (ultra4, ultra, compact,
+    plain), with and without polarity: the 'auto' ladder settles on that
+    tier, the planes go to the card through pinned staging buffers and
+    decode there equal to the CPU decode on every field; bytes an event,
+    the upload's and the decode's time;
+23. K1 with a stream axis: S = 8 streams of T = 200 chunks of 256 winners
+    at full width, bit-equal to its plain version and to 8 one-stream
+    calls, one binning and one scan launch a call (counted), its device
+    time against the 8 one-stream calls' and its bytes bound;
+24. serving (this slice's main path): StreamingPipeline(streams=S,
+    wire='auto', max_in_flight=2) at full width, 64 chunks a stream a
+    dispatch, 12 dispatches, S = 1, 8 and 16, the counts set to 0 just
+    before each run and read just after (one K1 call a dispatch, on the
+    stream axis for S > 1): the first dispatch's K1 call bit-equal to its
+    plain version on the same inputs; aggregate events/s, p50 dispatch
+    latency, the tier settled on; at S = 8 the end surfaces bit-equal and
+    the decoded outputs within 1e-4 of 8 one-stream pipelines;
+25. serve CLI: scripts.serve (its main) on a synthetic n-data tree under a
+    temporary directory with seeded weights, --num_streams 4
+    --serve_chunks 64 --out, counted, its first K1 call bit-equal to its
+    plain version on the same inputs, and once more without --out; then a
+    --serve_state stop after one
+    dispatch and a resume, whose detections and saved state are bit-equal
+    to one pipeline serving the split twice without the stop;
+26. data plane: native/evio.cc built with g++ into build/native (phase 2,
+    beside nvcc) and held bit-equal to the numpy codecs (n-data files and
+    batch, EVT3, CRC-32C); device_prefetch delivering 16 pinned batches to
+    the card in order.
+
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's to K6's ``ms`` are their device time per call from
-torch.profiler (K1's: the binning pass and the scan; K3's, K4's and K5's:
+torch.profiler (K1's: the binning pass and the scan, also with a stream
+axis; K3's, K4's and K5's:
 the gather-GEMM kernel plus, where the plan splits the reduction, its
 split pass; K6's: the kernel and the two copies of its taps into constant
 memory; ``call_ms`` beside it is the event-timed wall time of a wrapper
@@ -158,10 +191,13 @@ exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
 
@@ -208,6 +244,8 @@ GG_EDGES = (
     ("stride 3 off 16 B", 10, 13, 8, 40, 3, 3, 1, 3),
 )
 TIER_GATE_STEPS = 200
+# calls a trace of named kernels runs ahead of the ones it counts (device_ms)
+TRACE_LEAD = 4
 # K6 against its plain version: |kernel - plain| <= K6_TOL * (1 + max|plain|).
 # The kernel rounds each of its 9 taps once (an FMA) where the plain
 # version rounds product and sum apart, so a conv value moves by at most
@@ -230,6 +268,26 @@ K6_EDGES = (
     ("H/2=5 W/2=1 O=7 alpha<0", 3, 10, 2, 7, -0.2),
     ("H/2=10 W/2=13 O=16 alpha>1", 2, 20, 26, 16, 1.5),
 )
+
+
+def scan_launches(events: int = 0, streams: int = 0, tsmap: int = 0) -> dict:
+    """The launch counts of ops/surface_scan.py that a path must show: K1
+    without and with a stream axis, K2."""
+    return {"surface_scan_events": events, "surface_scan_events_streams": streams,
+            "surface_scan_tsmap": tsmap}
+
+
+def build_native():
+    """Build native/evio.cc with the host's C++ compiler into build/native/
+    (what data/native.py does at first use; with OpenMP where the compiler
+    has it, the library's name says which); returns the library's path and
+    the seconds the build took (None: found built)."""
+    from async_ev_cnn_torch.data import native
+
+    t0 = time.perf_counter()
+    found = any(native.library_path(openmp=o).exists() for o in (True, False))
+    path = native.build()
+    return path, None if found else time.perf_counter() - t0
 
 
 def require(cond, what: str) -> None:
@@ -299,19 +357,43 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def trace_ms(recs, keys, iters: int, lead: int, per_call: int):
+    """Device ms a call from the CUDA records ``recs`` of one trace of
+    ``iters + lead`` calls, or None where the trace lost records.  Each
+    kernel name (each of ``keys``, matched as a part of the name; each
+    name recorded when ``keys`` is None) launched ``m`` times a call
+    (``per_call``; when ``keys`` is None, its count over ``iters + lead``
+    rounded) must have between ``m * iters`` and ``m * (iters + lead)``
+    records, and its last ``m * iters`` in start order are summed, so a
+    lost record is only ever stood in for by a record of the same kernel."""
+    names = keys if keys is not None else sorted({e.name for e in recs})
+    if not names:
+        return None
+    total_us = 0.0
+    for k in names:
+        mine = sorted((e for e in recs if (k in e.name if keys is not None else e.name == k)),
+                      key=lambda e: e.time_range.start)
+        m = per_call if keys is not None else round(len(mine) / (iters + lead))
+        if m < 1 or not m * iters <= len(mine) <= m * (iters + lead):
+            return None
+        total_us += sum(e.time_range.elapsed_us() for e in mine[-m * iters:])
+    return total_us / 1e3 / iters
+
+
 def device_ms(fn, kernel_keys=None, iters: int = 20, per_call: int = 1) -> float:
     """Device time per call of ``fn`` under torch.profiler: the kernels
-    whose name holds one of ``kernel_keys`` (a name or a tuple of names;
-    every kernel when None), summed over ``iters`` calls.  Unlike
-    :func:`time_ms` it leaves out the host's time between launches, which
-    sets a small kernel's wall time.
+    whose name holds one of ``kernel_keys`` (a name or a tuple of names,
+    each launched ``per_call`` times a call; every kernel and copy when
+    None), over ``iters`` calls.  Unlike :func:`time_ms` it leaves out the
+    host's time between launches, which sets a small kernel's wall time.
 
-    A trace must record exactly ``iters * per_call`` launches of the named
-    kernels (``fn`` launches ``per_call`` of them a call), and at least one
-    kernel when none is named.  A plain trace has lost kernel records on
-    the H100 (once one launch, once a whole trace, once three traces in a
-    row; a trace with a profiler schedule loses them often), so a short
-    trace is taken again after a pause, 5 traces at most."""
+    A trace runs ``TRACE_LEAD`` calls more than it counts and is read by
+    :func:`trace_ms`, name by name.  Traces on the H100 lose kernel
+    records (once one launch, once a whole trace, late in a long run of
+    this script 1-3 records of every trace, five traces running, once
+    about half of one kernel's in a trace of every kernel); a trace that
+    lost more than the lead calls cover is taken again after a pause, 5
+    traces at most, and then the call fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -322,23 +404,23 @@ def device_ms(fn, kernel_keys=None, iters: int = 20, per_call: int = 1) -> float
     for attempt in range(5):
         time.sleep(0.2 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(iters + TRACE_LEAD):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                and (keys is None or any(k in e.key for k in keys))]
-        total_ms = sum(e.self_device_time_total for e in hits) / 1e3
-        counts.append(sum(e.count for e in hits))
-        if counts[-1] == iters * per_call or (keys is None and counts[-1] > 0):
-            return total_ms / iters
-    raise RuntimeError(f"chip_smoke check failed: profiled {counts} launches of "
-                       f"{keys} in 5 traces of {iters} calls x {per_call}")
+        recs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ms = trace_ms(recs, keys, iters, TRACE_LEAD, per_call)
+        if ms is not None:
+            return ms
+        counts.append(len(recs))
+    raise RuntimeError(f"chip_smoke check failed: profiled {counts} records of "
+                       f"{keys or 'every kernel'} in 5 traces of {iters} + {TRACE_LEAD} "
+                       f"calls x {per_call}")
 
 
 def gg_device_ms(fn, plan) -> float:
     """Device time per call of a K3 or K5 wrapper: its gather-GEMM kernel
     and, where the plan splits the reduction, the split pass."""
-    return device_ms(fn, GG_KERNELS, per_call=1 + (plan.splits > 1))
+    return device_ms(fn, GG_KERNELS if plan.splits > 1 else GG_KERNELS[0])
 
 
 def split_pass_ms(fn, plan) -> float:
@@ -754,7 +836,7 @@ def rows_phase(dev, net, params, ios):
             "ow": ow, "err": err, "plan": plan_text(plan),
             "ms": gg_device_ms(lambda: tr.rows_gather_conv(*args_), plan),
             "split_ms": split_pass_ms(lambda: tr.rows_gather_conv(*args_), plan),
-            "other_ms": {s: device_ms(call, GG_KERNELS, per_call=1 + (s > 1))
+            "other_ms": {s: device_ms(call, GG_KERNELS if s > 1 else GG_KERNELS[0])
                          for s, call in other.items()},
             "plain_ms": time_ms(lambda: tr.rows_gather_conv_plain(*args_), 5),
             "library_ms": device_ms(lambda: tconv.conv2d_dense(
@@ -885,7 +967,7 @@ def incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi):
     wall = time.perf_counter() - t0
     seq_launches = dict(rg.LAUNCHES)
     per_layer = {k: dict(v) for k, v in net.layer_counts.items()}
-    require(dict(sc.LAUNCHES) == {"surface_scan_events": 0, "surface_scan_tsmap": 0},
+    require(dict(sc.LAUNCHES) == scan_launches(events=0, tsmap=0),
             f"the sequential path launched a surface scan: {sc.LAUNCHES}")
     require(per_layer["conv1"].get("kernel_launches", 0) == SEQ_CHUNKS,
             f"K3 launched {per_layer['conv1'].get('kernel_launches', 0)} times at conv1 "
@@ -1316,7 +1398,7 @@ def checkpoint_phase(model, kwargs, items, smi):
                  for name, m in (("set_weights", model), *loaded.items())}
         torch.cuda.synchronize()
         launches = dict(sc.LAUNCHES)
-        require(launches == {"surface_scan_events": 3, "surface_scan_tsmap": 0},
+        require(launches == scan_launches(events=3, tsmap=0),
                 f"checkpoint path launches {launches} for three single-window dispatches")
         ref_state, ref = grids["set_weights"]
         for fmt in loaded:
@@ -1504,7 +1586,7 @@ def ts_window_phase(model, smi):
                                               integrate_engine="tsmap")
         torch.cuda.synchronize()
         launches = dict(sc.LAUNCHES)
-        require(launches == {"surface_scan_events": 0, "surface_scan_tsmap": 1},
+        require(launches == scan_launches(events=0, tsmap=1),
                 f"ts_window path ({name}) launches {launches}")
         st_e, out_e = model.net.scan_parallel(model.params, st0, chunks)
         require(bit_equal(st_w[0].surface, st_e[0].surface)
@@ -1547,6 +1629,507 @@ def maxplus_phase(model, c0, k1_info, smi):
     return {"maxplus_ms": mp_ms, "events_ms": ev_ms}
 
 
+# ---- the serving deployment: wire tiers, K1 on a stream axis, multi-stream
+# serving, the serve CLI and the data plane (phases 22-26) --------------------
+
+WIRE_TIER_NAMES = ("ultra4", "ultra", "compact", "plain")
+K1_STREAMS = 8
+SERVE_STREAMS = (1, 8, 16)
+SERVE_CHUNKS = 64
+SERVE_DISPATCHES = 12
+CLI_STREAMS = 4
+CLI_EXAMPLES = 8
+CLI_EVENTS = 20_000
+
+
+def tier_stream(rng, tier, n, polarity=False):
+    """``n`` uniform events at full width whose timestamps fit ``tier`` and
+    no smaller one: within-chunk gaps below 16 µs (ultra4); 16 to 255 µs
+    (ultra); below 200 µs with one of 300 µs every 64 events, chunk spans
+    under 2**16 µs (compact); the same with one of 70,000 µs instead, chunk
+    spans past 2**16 µs (plain)."""
+    lo, hi = {"ultra4": (1, 16), "ultra": (16, 256)}.get(tier, (1, 200))
+    gaps = rng.randint(lo, hi, size=n)
+    if tier in ("compact", "plain"):
+        gaps[5::64] = 300 if tier == "compact" else 70_000
+    cols = [rng.randint(0, H, n), rng.randint(0, W, n), np.cumsum(gaps)]
+    if polarity:
+        cols.append(rng.randint(0, 2, n))
+    return np.stack(cols, axis=-1).astype(np.int64)
+
+
+def wire_phase(dev, smi):
+    """Phase 22: a T=200 stream fitting each tier, with and without
+    polarity: the 'auto' ladder (ultra4 -> ultra -> compact -> plain)
+    settles on that tier; the planes uploaded from pinned memory and
+    decoded on the card are equal to the CPU decode field by field; bytes
+    an event on the wire, the upload's and the decode's time."""
+    from async_ev_cnn_torch.utils import wire as tw
+
+    ladder = (tw.pack_wire_ultra4, tw.pack_wire_ultra, tw.pack_wire_compact, tw.pack_wire)
+    staging = tw.PinnedStaging()  # the pipeline's way to the card
+    rng = np.random.RandomState(22)
+    n = T_CHUNKS * CAPACITY
+    rows, info = [], {}
+    for polarity in (False, True):
+        for tier in WIRE_TIER_NAMES:
+            ev = tier_stream(rng, tier, n, polarity)
+            w = next(x for x in (f(ev, CAPACITY, keep_polarity=polarity) for f in ladder)
+                     if x is not None)
+            require(tw.wire_format(w) == tier,
+                    f"the 'auto' ladder put a {tier} stream on {tw.wire_format(w)}")
+            planes = tw.wire_to_device(w, dev, staging)
+            got = tw.chunks_from_wire_any(planes, polarity)
+            want = tw.chunks_from_wire_any(tw.wire_to_device(w, "cpu"), polarity)
+            torch.cuda.synchronize()
+            for f in ("y", "x", "ts", "p", "valid"):
+                a, b = getattr(got, f), getattr(want, f)
+                require(a.device == dev and a.dtype == b.dtype and torch.equal(a.cpu(), b),
+                        f"{tier} (polarity {polarity}): the card's {f} != the CPU decode's")
+            b_ev = sum(a.nbytes for a in w) / n
+            decode_ms = device_ms(lambda: tw.chunks_from_wire_any(planes, polarity))
+            upload_ms = time_ms(lambda: tw.wire_to_device(w, dev, staging), 20)
+            info[(tier, polarity)] = {"bytes_per_event": b_ev, "decode_ms": decode_ms,
+                                      "upload_ms": upload_ms}
+            rows.append(f"{tier}{' +p' if polarity else ''} {b_ev:.4f} B/event, upload "
+                        f"{upload_ms:.4f} ms, decode device {decode_ms:.4f} ms")
+    print(f"wire: T={T_CHUNKS} x {CAPACITY} events at {H}x{W}, each stream on the tier "
+          "'auto' picks, card decode == CPU decode on every field: " + "; ".join(rows)
+          + f"; card {smi!r}", flush=True)
+    return info
+
+
+def k1_streams_phase(dev, smi, s=K1_STREAMS):
+    """Phase 23: K1 with a stream axis, S streams of T=200 chunks of 256
+    winners at full width: bit-equal to its plain version and to S
+    one-stream calls; one call is one binning and one scan launch (the
+    profiler counts them); its device time against the S one-stream calls'
+    and its bytes bound."""
+    from async_ev_cnn_torch.layers.types import EventChunk
+    from async_ev_cnn_torch.ops import integrate as it
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    rng = np.random.RandomState(23)
+    parts = [pack_chunks(synth_stream(rng, T_CHUNKS, CAPACITY), CAPACITY, device=dev)
+             for _ in range(s)]
+    chunks = EventChunk(*(torch.stack(f) for f in zip(*parts)))
+    s0 = torch.from_numpy(
+        (np.round(rng.rand(s, 1, H, W) * 2**20) / 2**20).astype(np.float32)).to(dev)
+    prev = torch.from_numpy(rng.randint(0, 50, s).astype(np.int32)).to(dev)
+    pix, dt, d, _ = it.chunk_event_updates(1, H, W, prev, chunks, LEAK)
+
+    def batched():
+        return sc.surface_scan_events(s0, pix, dt, d, LEAK)
+
+    def singles():
+        return [sc.surface_scan_events(s0[i], pix[i], dt[i], d[i], LEAK) for i in range(s)]
+
+    sc.reset_launches()
+    out = batched()
+    torch.cuda.synchronize()
+    launches = dict(sc.LAUNCHES)
+    require(launches == scan_launches(streams=1), f"one stream-axis K1 call launched {launches}")
+    ms = device_ms(batched, K1_KERNELS, iters=10)
+    singles_ms = device_ms(singles, K1_KERNELS, iters=10, per_call=s)
+    plain = sc.surface_scan_events_plain(s0, pix, dt, d, LEAK)
+    one_by_one = torch.stack(singles())
+    torch.cuda.synchronize()
+    require(out.shape == (s, T_CHUNKS, 1, H, W), f"K1 stream axis shape {tuple(out.shape)}")
+    require(bit_equal(out, plain), "K1 with a stream axis != its plain version")
+    require(bit_equal(out, one_by_one), f"K1 with a stream axis != {s} one-stream calls")
+    err = float((out - plain).abs().max())
+    t_len, e_len, p_len = T_CHUNKS, CAPACITY, H * W
+    plan = sc.scan_events_plan(t_len, e_len, p_len, s)
+    info = {
+        "streams": s,
+        # the profiler's count proves one binning and one scan launch a call
+        "ms": ms, "singles_ms": singles_ms,
+        "call_ms": time_ms(batched, 50),
+        "singles_call_ms": time_ms(singles, 20),
+        "plain_ms": time_ms(lambda: sc.surface_scan_events_plain(s0, pix, dt, d, LEAK), 1, 3),
+        "max_abs_err": err,
+        "bound": bound_ms(4 * s * (t_len * p_len + p_len + 2 * t_len * e_len + t_len),
+                          s * (4 * t_len * p_len + 6 * t_len * e_len)),
+    }
+    del out, plain, one_by_one
+    print(f"k1-streams: S={s} streams x T={t_len} x E={e_len} at {H}x{W} [grid {plan.n_tiles} "
+          f"tiles x {s} streams, workspace {plan.workspace} int32]: bit-equal to its plain "
+          f"version and to {s} one-stream calls; launches {launches}; device "
+          f"{info['ms']:.4f} ms a call (one binning + one scan launch) against "
+          f"{info['singles_ms']:.4f} ms for {s} one-stream calls; a call {info['call_ms']:.4f} "
+          f"ms against {info['singles_call_ms']:.4f} ms; plain {info['plain_ms']:.2f} ms; bound "
+          f"{info['bound'][0]:.4f} ms {info['bound'][1]} ({100 * info['bound'][0] / info['ms']:.0f}% "
+          f"of it); card {smi!r}", flush=True)
+    return info
+
+
+@contextlib.contextmanager
+def k1_on_path():
+    """Keeps the inputs and the output of the first K1 call made on the
+    path driven inside (``integrate_parallel`` looks ``surface_scan_events``
+    up in its module at each call), to hold that call against the plain
+    version on the same inputs after the run (:func:`check_k1_on_path`)."""
+    from async_ev_cnn_torch.ops import integrate as it
+
+    real, seen = it.surface_scan_events, []
+
+    def spy(*args):
+        if seen:
+            return real(*args)
+        kept = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        out = real(*args)
+        seen.append((kept, out.clone()))
+        return out
+
+    it.surface_scan_events = spy
+    try:
+        yield seen
+    finally:
+        it.surface_scan_events = real
+
+
+def check_k1_on_path(seen, what) -> str:
+    """The kept K1 call bit-equal to its plain version; its shape."""
+    from async_ev_cnn_torch.ops import surface_scan as sc
+
+    require(len(seen) == 1, f"{what}: no K1 call on the path")
+    args, out = seen[0]
+    plain = sc.surface_scan_events_plain(*args)
+    require(bit_equal(out, plain),
+            f"{what}: K1 on the path's inputs {tuple(out.shape)} != its plain version")
+    return "x".join(map(str, out.shape))
+
+
+def serving_pipeline(model, streams, post, dev, wire="auto", max_in_flight=2):
+    from async_ev_cnn_torch.utils.serving import StreamingPipeline
+
+    return StreamingPipeline(model.net, model.params, capacity=CAPACITY, streams=streams,
+                             t_chunks=SERVE_CHUNKS, wire=wire, postprocess=post,
+                             max_in_flight=max_in_flight, device=dev)
+
+
+def multistream_phase(model, num_classes, num_bbox, smi):
+    """Phase 24 (this slice's main path): StreamingPipeline(streams=S,
+    wire='auto') at full width, SERVE_CHUNKS chunks a stream a dispatch,
+    S in SERVE_STREAMS, each stream a contiguous synthetic feed, items
+    round-robin; the launch counts set to 0 just before each run and read
+    just after (one K1 call a dispatch, on the stream axis for S > 1);
+    the first dispatch's K1 call against its plain version on the same
+    inputs; aggregate events/s over dispatches 2.., p50 dispatch latency, the tier;
+    at S = 8 the outputs and end state against S one-stream pipelines; one
+    more dispatch under torch.profiler (the card's busy share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from async_ev_cnn_torch.models import head
+    from async_ev_cnn_torch.ops import surface_scan as sc
+
+    def post(outs):  # the serve CLI's: boxes and class probs, leading axes kept
+        boxes, _, probs = head.decode(outs, num_classes, num_bbox, H, W)
+        return boxes, probs
+
+    dev = model.device
+    rows, info = [], {}
+    for s in SERVE_STREAMS:
+        rng = np.random.RandomState(24 + s)
+        # one item a stream more than the counted run serves: the profiled one
+        feeds = [np.split(synth_stream(rng, (SERVE_DISPATCHES + 1) * SERVE_CHUNKS, CAPACITY),
+                          SERVE_DISPATCHES + 1) for _ in range(s)]
+        source = [feeds[i][k] for k in range(SERVE_DISPATCHES) for i in range(s)]
+        pipe = serving_pipeline(model, s, post, dev)
+        sc.reset_launches()
+        torch.cuda.synchronize()
+        with k1_on_path() as seen:  # first dispatch: cuDNN set-up
+            warm = list(pipe.serve(source[:s]))
+        t0 = time.perf_counter()
+        rest = list(pipe.serve(source[s:]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(sc.LAUNCHES)
+        n_disp = SERVE_DISPATCHES
+        require(launches == (scan_launches(events=n_disp) if s == 1 else
+                             scan_launches(streams=n_disp)),
+                f"S={s} serving launches {launches} for {n_disp} dispatches")
+        k1_shape = check_k1_on_path(seen, f"S={s} serving")
+        served = warm + rest
+        require(len(served) == n_disp, f"S={s}: served {len(served)} of {n_disp}")
+        lead = (SERVE_CHUNKS,) if s == 1 else (s, SERVE_CHUNKS)
+        for r in served:
+            boxes, probs = r.outputs
+            require(boxes.shape[:-2] == lead and bool(torch.isfinite(boxes).all()
+                                                      and torch.isfinite(probs).all()),
+                    f"S={s}: decoded outputs {tuple(boxes.shape)} or not finite")
+            require(r.n_events == s * SERVE_CHUNKS * CAPACITY, f"S={s}: {r.n_events} events")
+        rate = sum(r.n_events for r in rest) / wall
+        lat = pipe.latency_stats()
+        info[s] = {"events_per_s": rate, "p50_ms": lat["dispatch_latency_ms"]["p50"],
+                   "ms_per_dispatch": wall * 1e3 / (n_disp - 1), "tier": pipe.wire_tier,
+                   "launches": launches, "k1_shape": k1_shape, "bytes_per_event":
+                       pipe.stats["wire_bytes"] / pipe.stats["events"]}
+        extra = ""
+        if s == K1_STREAMS:
+            out_err, bits = 0.0, True
+            for i in range(s):
+                one = serving_pipeline(model, 1, post, dev)
+                for k, r in enumerate(one.serve(feeds[i][:SERVE_DISPATCHES])):
+                    for a, b in zip(served[k].outputs, r.outputs):
+                        out_err = max(out_err, float((a[i] - b).abs().max()))
+                bits &= (bit_equal(pipe.state[0].surface[i], one.state[0].surface)
+                         and int(pipe.state[0].prev_ts[i]) == int(one.state[0].prev_ts))
+            require(bits, f"S={s}: a stream's end state != its one-stream pipeline's")
+            require(out_err <= OUT_TOL, f"S={s}: outputs {out_err} from one-stream pipelines")
+            info[s]["vs_single_max_abs"] = out_err
+            extra = (f", end surfaces and prev_ts bit-equal to {s} one-stream pipelines, "
+                     f"decoded outputs within {out_err:.3e}")
+        # one more dispatch under torch.profiler: the card's busy share
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            list(pipe.serve([feeds[i][SERVE_DISPATCHES] for i in range(s)]))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        top = sorted(((e.key, e.self_device_time_total) for e in events
+                      if e.device_type == DeviceType.CPU), key=lambda e: -e[1])[:4]
+        info[s].update(profiled_wall_ms=wall_ms, busy_ms=busy_ms)
+        rows.append(f"S={s}: {rate:.0f} events/s ({info[s]['ms_per_dispatch']:.2f} ms a "
+                    f"dispatch of {s} x {SERVE_CHUNKS} x {CAPACITY} events), p50 dispatch "
+                    f"latency {info[s]['p50_ms']} ms, tier {pipe.wire_tier} "
+                    f"({info[s]['bytes_per_event']:.4f} B/event), launches {launches}, "
+                    f"the first dispatch's K1 call ({k1_shape}) bit-equal to its plain "
+                    f"version{extra}; "
+                    f"a profiled dispatch: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
+                    f"({100 * busy_ms / wall_ms:.1f}%), most device time in "
+                    + ", ".join(f"{k[:28]} {us / 1e3:.3f} ms" for k, us in top))
+    # where a one-stream dispatch's time goes, layer by layer (utils/profiling:
+    # prefix ablation timed by CUDA events)
+    from async_ev_cnn_torch.utils.profiling import profile_layers_parallel
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    chunks = pack_chunks(synth_stream(np.random.RandomState(24), SERVE_CHUNKS, CAPACITY),
+                         CAPACITY, device=dev)
+    stages = profile_layers_parallel(model.net, model.params, chunks, reps=3, dispatches=4)
+    info["stages"] = stages
+    rows.append(f"stages of a T={SERVE_CHUNKS} one-stream dispatch (profile_layers_parallel, "
+                "ms a dispatch): " + ", ".join(f"{n} {ms:.3f}" for n, ms in stages))
+    print(f"serving: StreamingPipeline(wire='auto', max_in_flight=2, t_chunks={SERVE_CHUNKS}) "
+          f"at {H}x{W}, {SERVE_DISPATCHES} dispatches, events/s over dispatches 2..: "
+          + "; ".join(rows) + f"; card {smi!r}", flush=True)
+    return info
+
+
+def write_detection_tree(root: Path, rng, num_classes, args):
+    """A synthetic n-data detection tree at the config's example size:
+    CLI_EXAMPLES test examples of CLI_EVENTS events (ts gaps of 1..14 µs),
+    one train and one validation example, annotations and params.npz."""
+    from async_ev_cnn_torch.data.file_reader import NReader
+
+    (root / "annotations").mkdir(parents=True)
+    for split, k in (("train", 1), ("test", CLI_EXAMPLES), ("validation", 1)):
+        (root / split).mkdir()
+        for i in range(k):
+            n = CLI_EVENTS
+            x = rng.randint(0, args.example_w, n).astype(np.int32)
+            y = rng.randint(0, args.example_h, n).astype(np.int32)
+            ts = np.cumsum(rng.randint(1, 15, n)).astype(np.int32)
+            p = rng.randint(0, 2, n).astype(np.int32)
+            name = f"{split}_{i}"
+            NReader().save_example(str(root / split / f"{name}.bin"), x, y, ts, p)
+            np.save(str(root / "annotations" / f"{name}.npy"), rng.rand(1, 6).astype(np.float32))
+    np.savez(str(root / "params.npz"), num_classes=num_classes,
+             label_to_idx=np.array([(f"c{c}", c) for c in range(num_classes)], dtype=object))
+
+
+def serve_cli_phase(dev, layer_defs, num_classes, smi):
+    """Phase 25: ``python -m async_ev_cnn_torch.scripts.serve`` (its
+    ``main``) on a synthetic n-data tree under a temporary directory with
+    seeded weights, --num_streams 4 --serve_chunks 64 --out: the launches
+    of the run (counts set to 0 just before, read just after), its first
+    K1 call against its plain version on the same inputs, its stats
+    and detections, and the same run without --out; then a --serve_state
+    stop (after one dispatch) and resume, held bit for bit against one
+    pipeline that serves the split twice without the stop (a run enqueues
+    the whole split before its first dispatch retires, so the saved state
+    is the split's end)."""
+    import tempfile
+
+    from async_ev_cnn_torch.data import detection_reader
+    from async_ev_cnn_torch.models import head
+    from async_ev_cnn_torch.models.yolo import YoloEventTorch
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.scripts import serve
+    from async_ev_cnn_torch.utils.checkpoint import restore_stream_state, save_params
+    from async_ev_cnn_torch.utils.config import config
+
+    cfg = str(HERE / "configs" / "efcn_event.yml")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        args = config(["-c", cfg])
+        write_detection_tree(tmp / "tree", np.random.RandomState(25), num_classes, args)
+        ckpt = str(tmp / "efcn.npz")
+        save_params(ckpt, make_params(layer_defs, np.random.RandomState(0)))
+        base = ["-c", cfg, "--input_data_dir", str(tmp / "tree"), "--restore_net", ckpt,
+                "--mode", "full", "--num_streams", str(CLI_STREAMS), "--serve_chunks",
+                str(SERVE_CHUNKS), "--conf_threshold", "-10"]
+        on_dev = ["--device", str(dev)]
+        out = tmp / "dets.jsonl"
+        sc.reset_launches()
+        torch.cuda.synchronize()
+        with contextlib.redirect_stdout(io.StringIO()), k1_on_path() as seen:
+            stats = serve.main(base + on_dev + ["--out", str(out)])  # stats: returned too
+        torch.cuda.synchronize()
+        launches = dict(sc.LAUNCHES)
+        k1_shape = check_k1_on_path(seen, "serve CLI")
+        require(launches == scan_launches(streams=stats["dispatches"]),
+                f"serve CLI launches {launches} for {stats['dispatches']} dispatches")
+        n_lines = len(out.read_text().splitlines())
+        require(stats["events"] > 0 and n_lines > 0 and stats["detections_written"] == n_lines,
+                f"serve CLI stats {stats} against {n_lines} JSONL lines")
+        # the same run without --out: nothing fetched a dispatch, no host NMS
+        with contextlib.redirect_stdout(io.StringIO()):
+            bare = serve.main(base + on_dev)
+        require(bare["events"] == stats["events"], f"serve CLI without --out: {bare}")
+        # stop after one dispatch, then resume from the saved state
+        run = base + ["--serve_max_dispatches", "1", "--serve_state", str(tmp / "st.npz"),
+                      "--out", str(tmp / "resume.jsonl")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            first = serve.main(run + on_dev)
+        n_first = len((tmp / "resume.jsonl").read_text().splitlines())
+        with contextlib.redirect_stdout(io.StringIO()):
+            second = serve.main(run + on_dev)
+        resumed = (tmp / "resume.jsonl").read_text().splitlines()[n_first:]
+        require(not first["state_restored"] and second["state_restored"] and resumed,
+                "serve CLI stop/resume did not restore")
+        # the uninterrupted reference: the split twice through one pipeline
+        cargs = config(run)
+        model = YoloEventTorch(
+            args.frame_h, args.frame_w, num_classes, layer_defs, args.yolo_cnn_padding,
+            args.yolo_num_cells_h, args.yolo_num_cells_w, args.yolo_num_bbox, alpha=0.1,
+            leak=args.leak, conv_mode="full", checkpoint=ckpt, device=dev)
+
+        def post(outs):
+            boxes, _, probs = head.decode(outs, num_classes, args.yolo_num_bbox,
+                                          args.frame_h, args.frame_w)
+            return boxes, probs
+
+        from async_ev_cnn_torch.utils.serving import StreamingPipeline
+
+        pipe = StreamingPipeline(model.net, model.params, capacity=args.batch_event_size,
+                                 streams=CLI_STREAMS, t_chunks=SERVE_CHUNKS,
+                                 postprocess=post, device=dev)
+        reader = detection_reader.factory(str(tmp / "tree"), file_format="n-data")
+        items = [ev for _, ev in serve._stream_items(reader, cargs, CLI_STREAMS,
+                                                     args.batch_event_size, SERVE_CHUNKS)]
+        require(stats["events"] == sum(ev.shape[0] for ev in items),
+                f"the serve CLI served {stats['events']} of the split's events")
+        results = list(pipe.serve(items + items))
+        with open(tmp / "ref.jsonl", "w") as fh:
+            serve._write_detections(fh, results[len(items) // CLI_STREAMS], cargs, 0,
+                                    CLI_STREAMS)
+        require(resumed == (tmp / "ref.jsonl").read_text().splitlines(),
+                "the resumed CLI's detections differ from the uninterrupted pipeline's")
+        saved = restore_stream_state(str(tmp / "st.npz"), pipe.state)
+        require(all(bit_equal(a.float(), b.float()) if a.is_floating_point() else
+                    torch.equal(a, b) for sa, sb in zip(saved, pipe.state)
+                    for a, b in zip(sa, sb)),
+                "the resumed CLI's saved state differs from the uninterrupted pipeline's")
+    print(f"serve-cli: scripts.serve --num_streams {CLI_STREAMS} --serve_chunks {SERVE_CHUNKS} "
+          f"--out on {CLI_EXAMPLES} n-data examples of {CLI_EVENTS} events: "
+          f"{stats['dispatches']} dispatches, {stats['events']} events, "
+          f"{stats['events_per_sec']} events/s (file decode included), tier "
+          f"{stats['wire_tier']} ({stats['wire_B_per_event']} B/event), "
+          f"{stats['detections_written']} detections, p50 dispatch latency "
+          f"{stats['latency']['dispatch_latency_ms']['p50']} ms, launches {launches}, the "
+          f"first K1 call ({k1_shape}) bit-equal to its plain version; without "
+          f"--out {bare['events_per_sec']} events/s, p50 dispatch latency "
+          f"{bare['latency']['dispatch_latency_ms']['p50']} ms; "
+          f"--serve_state stop after 1 dispatch and resume: {len(resumed)} detections and the "
+          f"saved state bit-equal to the uninterrupted pipeline; card {smi!r}", flush=True)
+    return stats
+
+
+def data_plane_phase(dev, native_lib, smi):
+    """Phase 26: the native decoder built from native/evio.cc into build/
+    held bit-equal to the numpy codecs (n-data files and the OpenMP batch,
+    EVT3, CRC-32C); device_prefetch delivering pinned batches to the card
+    in order, each equal to its host batch."""
+    import tempfile
+
+    from async_ev_cnn_torch.data import native
+    from async_ev_cnn_torch.data.evt import Evt3Reader
+    from async_ev_cnn_torch.data.file_reader import NReader
+    from async_ev_cnn_torch.data.prefetch import device_prefetch
+    from async_ev_cnn_torch.utils import tf_bundle
+
+    require(native.get_lib() is not None and native_lib.parent == native.BUILD_DIR,
+            f"the native decoder is not loaded from {native.BUILD_DIR}")
+    rng = np.random.RandomState(26)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(6):
+            n = 50_000 + 1_000 * i
+            x, y = rng.randint(0, 232, n), rng.randint(0, 172, n)
+            ts = np.cumsum(rng.randint(1, 400, n))  # past 2^23 µs: overflow markers
+            path = str(Path(tmp) / f"ex{i}.bin")
+            NReader().save_example(path, x, y, ts, rng.randint(0, 2, n))
+            paths.append(path)
+        t0 = time.perf_counter()
+        batch = native.decode_ndata_batch(paths)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        numpy_out = [NReader.decode(np.fromfile(p, np.uint8)) for p in paths]
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        for path, got, want in zip(paths, batch, numpy_out):
+            for a in (got, native.decode_ndata_file(path)):
+                require(a[0] == want[0] and all(np.array_equal(u, v) and u.dtype == v.dtype
+                                                for u, v in zip(a[1:], want[1:])),
+                        f"native n-data decode of {Path(path).name} != the numpy codec's")
+        evt = str(Path(tmp) / "ex.raw")
+        n = 40_000
+        Evt3Reader().save_example(evt, rng.randint(0, 1280, n), rng.randint(0, 720, n),
+                                  np.cumsum(rng.randint(0, 300, n)), rng.randint(0, 2, n))
+        got = Evt3Reader().read_example(evt)
+        saved_lib = native._LIB
+        native._LIB = None  # the numpy codec
+        try:
+            want = Evt3Reader().read_example(evt)
+        finally:
+            native._LIB = saved_lib
+        require(got[0] == want[0] and all(np.array_equal(u, v) for u, v in zip(got[1:], want[1:])),
+                "native EVT3 decode != the numpy codec's")
+    data = rng.randint(0, 256, 1 << 16).astype(np.uint8).tobytes()
+    table = tf_bundle._crc_tables()[0]
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    require(native.crc32c(data) == crc ^ 0xFFFFFFFF, "native CRC-32C != the table loop's")
+
+    host = [[rng.randint(0, 2**31 - 1, (SERVE_CHUNKS, CAPACITY)).astype(np.int32),
+             {"counts": np.full(SERVE_CHUNKS, i, np.int32)}] for i in range(16)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = []
+    for planes, meta in device_prefetch(iter(host), size=2, device=dev):
+        require(planes.device == dev and meta["counts"].device == dev,
+                "device_prefetch delivered a batch off the card")
+        got.append((planes.sum(dtype=torch.int64), meta["counts"][0]))
+    torch.cuda.synchronize()
+    pf_ms = (time.perf_counter() - t0) * 1e3
+    for i, (a, c) in enumerate(got):
+        require(int(a) == int(host[i][0].astype(np.int64).sum()) and int(c) == i,
+                f"device_prefetch batch {i} out of order or changed")
+    mb = sum(b[0].nbytes + b[1]["counts"].nbytes for b in host) / 2**20
+    print(f"data-plane: native/evio.cc built into {native_lib.parent.relative_to(HERE)} "
+          f"({native_lib.name}); n-data batch of {len(paths)} files decoded natively in "
+          f"{batch_ms:.1f} ms (numpy codec {numpy_ms:.1f} ms), bit-equal, and per file; EVT3 "
+          f"and CRC-32C bit-equal; device_prefetch: {len(got)} pinned batches ({mb:.2f} MB) "
+          f"delivered to the card in order and equal to the host's in {pf_ms:.1f} ms; card "
+          f"{smi!r}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1587,7 +2170,10 @@ def main() -> int:
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     sources = ("surface_scan", "gather_gemm", "fused_stem", "gather_copy")
-    cuda_build.load_all(sources)  # one nvcc per source, started together
+    with ThreadPoolExecutor(max_workers=1) as pool:  # the host decoder beside them
+        native_built = pool.submit(build_native)
+        cuda_build.load_all(sources)  # one nvcc per source, started together
+        native_lib, native_s = native_built.result()
     parts = []
     for src in sources:
         built = cuda_build.BUILD_SECONDS.get(src)
@@ -1596,6 +2182,8 @@ def main() -> int:
         parts.append(f"{src}.cu (nvcc "
                      f"{'%.2f s' % built if built is not None else 'skipped: already built'}"
                      f"; ptxas: {ptxas})")
+    built = "skipped: already built" if native_s is None else f"{native_s:.2f} s"
+    parts.append(f"native/evio.cc (g++ {built} into {native_lib.parent.relative_to(HERE)})")
     print(f"build: loaded in {time.perf_counter() - t0:.2f} s: " + "; ".join(parts),
           flush=True)
     sass = sass_loop_cost(cuda_build.library_path("fused_stem"), K6_HOT_INSTANCE)
@@ -1648,9 +2236,9 @@ def main() -> int:
 
     uniform, clustered = (pix, dt, d), (cpix, cdt, cd)
     k1_info = {
-        "ms": device_ms(k1_call(uniform), K1_KERNELS, per_call=2),
+        "ms": device_ms(k1_call(uniform), K1_KERNELS),
         "bin_ms": device_ms(k1_call(uniform), "bin_events_kernel"),
-        "clustered_ms": device_ms(k1_call(clustered), K1_KERNELS, per_call=2),
+        "clustered_ms": device_ms(k1_call(clustered), K1_KERNELS),
         "clustered_bin_ms": device_ms(k1_call(clustered), "bin_events_kernel"),
         "call_ms": time_ms(k1_call(uniform), 50),
         "plain_ms": time_ms(lambda: sc.surface_scan_events_plain(s0, pix, dt, d, LEAK), 3),
@@ -1694,6 +2282,8 @@ def main() -> int:
           f"{k2_info['plain_ms']:.3f} ms, bound {k2_info['bound'][0]:.6f} "
           f"ms); card {smi!r}", flush=True)
     del k1c, p1, p2, ts_map, cts_map
+    # K1 with a stream axis, beside the one-stream kernels (phase 23)
+    k1s = k1_streams_phase(dev, smi)
 
     # ---- 4. the main path ------------------------------------------------------
     args = config(["-c", str(HERE / "configs" / "efcn_event.yml")])
@@ -1735,7 +2325,7 @@ def main() -> int:
 
     require(len(served) == DISPATCHES, f"served {len(served)} of {DISPATCHES} dispatches")
     # T=200 chunks is one window: K1 once per dispatch, K2 never
-    require(main_launches == {"surface_scan_events": DISPATCHES, "surface_scan_tsmap": 0},
+    require(main_launches == scan_launches(events=DISPATCHES, tsmap=0),
             f"main path launches {main_launches} for {DISPATCHES} single-window dispatches")
     for r in served:
         boxes, probs = r.outputs
@@ -1770,7 +2360,7 @@ def main() -> int:
     st_t, out_t = model.net.scan_parallel(model.params, st0, c0, integrate_engine="tsmap")
     torch.cuda.synchronize()
     tsmap_launches = dict(sc.LAUNCHES)
-    require(tsmap_launches == {"surface_scan_events": 0, "surface_scan_tsmap": 1},
+    require(tsmap_launches == scan_launches(events=0, tsmap=1),
             f"ts-map path launches {tsmap_launches} for one single-window dispatch")
     require(bit_equal(st_t[0].surface, st_e[0].surface)
             and float((out_t - out_e).abs().max()) <= OUT_TOL,
@@ -1832,6 +2422,10 @@ def main() -> int:
     frame_phase(model, kwargs, items, smi)
     ts_window_phase(model, smi)
     maxplus_phase(model, c0, k1_info, smi)
+    wire_phase(dev, smi)
+    serving = multistream_phase(model, num_classes, num_bbox, smi)
+    serve_cli_phase(dev, layer_defs, num_classes, smi)
+    data_plane_phase(dev, native_lib, smi)
 
     scans = [
         {"name": "surface_scan_events", "replaces": "async_ev_cnn_tpu/ops/pallas_scan.py:273",
@@ -1850,6 +2444,17 @@ def main() -> int:
             # no single PyTorch call computes the T-step clamped recurrence
             "library_ms": None,
         })
+    kernels.append({
+        "name": "surface_scan_events_streams", "route": "cuda",
+        "source": "async_ev_cnn_torch/csrc/surface_scan.cu",
+        "replaces": "async_ev_cnn_tpu/ops/pallas_scan.py:273",
+        # K1 with a stream axis (the TPU kernel under vmap): the launches of
+        # phase 24's S=8 run, this slice's main path
+        "launches": serving[K1_STREAMS]["launches"]["surface_scan_events_streams"],
+        "max_abs_err": k1s["max_abs_err"], "ms": k1s["ms"], "plain_ms": k1s["plain_ms"],
+        "bound_ms": k1s["bound"][0], "bound_by": k1s["bound"][1], "library_ms": None,
+        "streams": k1s["streams"], "singles_ms": k1s["singles_ms"],
+        "call_ms": k1s["call_ms"], "singles_call_ms": k1s["singles_call_ms"]})
     print(json.dumps({"kernels": kernels + rulebook_kernels + [stem_kernel, gather_copy]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

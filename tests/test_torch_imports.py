@@ -94,3 +94,37 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     assert max(run_equivalence(net, params, chunks, device="cpu").max_diff.values()) == 0.0
     assert test_correctness.main(["--iterations", "20", "--device", "cpu",
                                   "--mode", "sparse_pallas"]) == 0
+
+
+def test_serving_slice_entry_points_raise_without_a_device(monkeypatch, tmp_path):
+    """The serving slice's entry points (the multi-stream pipeline, the
+    runners, device_prefetch, pack_chunks_usec, the serve CLI) raise
+    without a device given and no CUDA device present; device='cpu' runs
+    them on the CPU."""
+    from types import SimpleNamespace
+
+    from async_ev_cnn_torch.data.prefetch import device_prefetch
+    from async_ev_cnn_torch.layers.network import EventNetwork
+    from async_ev_cnn_torch.scripts import serve
+    from async_ev_cnn_torch.utils.config import layers_dict
+    from async_ev_cnn_torch.utils.runner import EventRunner, pack_chunks_usec
+    from async_ev_cnn_torch.utils.serving import StreamingPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = EventNetwork(layers_dict("conv1=3,3,1,4 pool1=2,2"), 8, 8, 1e-3, padding="SAME",
+                       conv_mode="full")
+    params = {"w_conv1": torch.zeros(4, 1, 3, 3), "b_conv1": torch.zeros(4)}
+    reader = SimpleNamespace(num_classes=lambda: 1, label_to_idx=lambda: {"a": 0})
+    events = np.zeros((3, 3), np.int32)
+    for call in (lambda: StreamingPipeline(net, params, streams=3),
+                 lambda: EventRunner(SimpleNamespace(), reader),
+                 lambda: list(device_prefetch(iter([events]))),
+                 lambda: pack_chunks_usec(events, 4, 10),
+                 lambda: serve.main(["--mode", "full"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    pipe = StreamingPipeline(net, params, streams=3, device="cpu")
+    assert pipe.state[0].surface.shape == (3, 1, 8, 8) and pipe.wire_tier == "ultra4"
+    assert EventRunner(SimpleNamespace(), reader, device="cpu").device.type == "cpu"
+    assert list(device_prefetch(iter([events]), device="cpu"))[0].device.type == "cpu"
+    assert pack_chunks_usec(events, 4, 10, device="cpu").y.device.type == "cpu"

@@ -72,12 +72,12 @@ def _contiguous(items):
     return items
 
 
-def _pipes(rng, dsl=DSL, leak=1e-4, **kw):
+def _pipes(rng, dsl=DSL, leak=1e-4, wire="plain", **kw):
     tn, jn = _nets(dsl, leak)
     params = _params(dsl, rng)
     t = tserving.StreamingPipeline(tn, params_from_jax(params, "cpu"), capacity=CAP,
-                                   device="cpu", **kw)
-    j = jserving.StreamingPipeline(jn, params, capacity=CAP, wire="plain", **kw)
+                                   wire=wire, device="cpu", **kw)
+    j = jserving.StreamingPipeline(jn, params, capacity=CAP, wire=wire, **kw)
     return t, j
 
 
@@ -128,7 +128,7 @@ def test_pipeline_matches_jax_including_rebase(rng, max_in_flight):
     items += [ev + np.array([0, 0, int(items[-1][-1, 2]) + 1]) for ev in _rebasing_items(rng)]
     got = list(t_pipe.serve(items))
     want = list(j_pipe.serve(items))
-    assert t_pipe._epoch == j_pipe._epochs[0] > 0
+    assert t_pipe._epochs == j_pipe._epochs and t_pipe._epochs[0] > 0
     assert len(got) == len(want) == len(items)
     for g, w in zip(got, want):
         assert g.n_events == w.n_events
@@ -157,7 +157,7 @@ def test_pipeline_prepared_items_and_polarity_match_jax(rng):
     np.testing.assert_allclose(t_pipe.state[0].surface.numpy(),
                                np.asarray(j_pipe.state[0].surface), rtol=0, atol=SURF_TOL)
     assert int(t_pipe.state[0].prev_ts) == int(j_pipe.state[0].prev_ts)
-    assert t_pipe._epoch == j_pipe._epochs[0] > 0
+    assert t_pipe._epochs == j_pipe._epochs and t_pipe._epochs[0] > 0
 
 
 def test_yolo_scan_and_decode_match_jax(rng):
@@ -214,7 +214,7 @@ def test_f1_raw_item_carries_pending_shift_of_dropped_prepared_items(rng):
     p0 = t_pipe.prepare(items[0])
     t_pipe.prepare(items[1])  # dropped before dispatch
     got = [r.outputs for r in t_pipe.serve([p0, items[2]])]
-    assert t_pipe._applied_epoch == t_pipe._epoch > 0
+    assert t_pipe._applied_epochs == t_pipe._epochs and t_pipe._epochs[0] > 0
 
     oracle, _ = _pipes(np.random.RandomState(0), leak=leak)
     oracle._params = t_pipe._params
@@ -314,12 +314,18 @@ def test_pipeline_bookkeeping(rng):
 
 
 def test_pipeline_slice_limits(rng, tmp_path):
+    """Of the JAX engine's options the port refuses only mesh serving; every
+    wire tier and streams > 1 are taken ('auto' is the default, as there),
+    and bad values raise as there."""
     tn, _ = _nets()
     params = params_from_jax(_params(DSL, rng), "cpu")
-    for kw, exc, match in ((dict(wire="auto"), NotImplementedError, "wire"),
-                           (dict(wire="ultra4"), NotImplementedError, "wire"),
-                           (dict(wire="gzip"), ValueError, "wire must be"),
-                           (dict(streams=2), NotImplementedError, "multi-stream"),
+    for kw in (dict(), dict(wire="ultra4"), dict(wire="ultra"), dict(wire="compact"),
+               dict(wire="plain"), dict(streams=2), dict(streams=3, wire="auto")):
+        pipe = tserving.StreamingPipeline(tn, params, device="cpu", **kw)
+        assert pipe._wire == kw.get("wire", "auto")
+        streams = kw.get("streams", 1)
+        assert pipe.state[0].surface.shape == ((streams,) if streams > 1 else ()) + (1, H, W)
+    for kw, exc, match in ((dict(wire="gzip"), ValueError, "wire must be"),
                            (dict(streams=0), ValueError, "streams"),
                            (dict(mesh=object()), NotImplementedError, "mesh"),
                            (dict(max_in_flight=0), ValueError, "max_in_flight"),
