@@ -471,10 +471,12 @@ def dense_forward(
 
     ``variant='tf'``: conv -> leaky -> pool.  ``variant='numpy'`` also
     re-applies the activation after each pool (a reference quirk).  Pooling
-    is VALID, matching the event path's output shapes.
+    is VALID, matching the event path's output shapes.  ``frame`` is
+    ``[H, W]``, ``[C, H, W]`` or a batch ``[N, C, H, W]`` (the trainer's),
+    and the maps keep its leading axes.
     """
     outs: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    x = frame if frame.dim() == 3 else frame[None]  # [C, H, W]
+    x = frame[None] if frame.dim() == 2 else frame  # [C, H, W] or [N, C, H, W]
     outs["intgr"] = x
     for ld in event_layers:
         if ld.kind == "intgr":

@@ -278,6 +278,10 @@ class YoloFrameNumpy(_YoloBase):
         return np.maximum(x, x * self._alpha)
 
     def forward(self, frame):
+        """One frame (an array, or a tensor on any device, read on the
+        host) -> the grid ``[h_cells, w_cells, C + B*5]`` as an array."""
+        if isinstance(frame, torch.Tensor):
+            frame = frame.cpu().numpy()
         x = np.asarray(frame, np.float32)
         x = x[None] if x.ndim == 2 else x
         flat_tail = False

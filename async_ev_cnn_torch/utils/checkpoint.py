@@ -16,13 +16,17 @@ layout.  Orbax directories are the JAX ecosystem's format and are refused.
 
 The stream state (:func:`save_stream_state`) is stored as the JAX package
 stores it, one ``leaf_<i>`` array per leaf in ``jax.tree.leaves`` order, so
-a state saved by either package restores into the other's structure.
+a state saved by either package restores into the other's structure.  The
+same two functions store any tree of tuples, lists and dicts (sorted keys,
+an ``OrderedDict``'s in insertion order, as JAX takes them), such as the
+trainer's optimizer state (``models/train.py``).
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
+from collections import OrderedDict
 from typing import Dict
 
 import numpy as np
@@ -133,9 +137,20 @@ def normalize_names(params: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+def _checkpoint_arrays(params: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``params`` as host arrays, refusing tensors: the port's tensors hold
+    conv kernels OIHW, and written as they are they would load as HWIO
+    kernels of the wrong shape (``utils/weights.params_to_jax`` converts)."""
+    if any(isinstance(v, torch.Tensor) for v in params.values()):
+        raise TypeError(
+            "save_params takes checkpoint-convention arrays (HWIO kernels); "
+            "convert the port's tensors with utils.weights.params_to_jax")
+    return {k: np.asarray(v) for k, v in params.items()}
+
+
 def save_params(path: str, params: Dict[str, np.ndarray]) -> None:
     """Save checkpoint-convention weights as .npz (atomically)."""
-    _atomic_savez(path, {k: np.asarray(v) for k, v in params.items()})
+    _atomic_savez(path, _checkpoint_arrays(params))
 
 
 def save_params_tf(prefix: str, params: Dict[str, np.ndarray]) -> None:
@@ -143,18 +158,26 @@ def save_params_tf(prefix: str, params: Dict[str, np.ndarray]) -> None:
     Python, readable by TensorFlow and by :func:`load_params`)."""
     from async_ev_cnn_torch.utils.tf_bundle import save_tensor_bundle
 
-    save_tensor_bundle(prefix, {k: np.asarray(v) for k, v in params.items()})
+    save_tensor_bundle(prefix, _checkpoint_arrays(params))
 
 
 # ---- stream state ------------------------------------------------------------
 
 
+def _keys(tree: dict) -> list:
+    """A dict's keys in ``jax.tree.leaves`` order: sorted, but an
+    ``OrderedDict``'s in insertion order."""
+    return list(tree) if isinstance(tree, OrderedDict) else sorted(tree)
+
+
 def _leaves(tree) -> list:
     """The leaves of a state tree in ``jax.tree.leaves`` order: tuples and
-    lists (NamedTuples in field order) element by element, ``None``
-    dropped."""
+    lists (NamedTuples in field order) element by element, dicts value by
+    value in :func:`_keys` order, ``None`` dropped."""
     if tree is None:
         return []
+    if isinstance(tree, dict):
+        return [leaf for k in _keys(tree) for leaf in _leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
         return [leaf for sub in tree for leaf in _leaves(sub)]
     return [tree]
@@ -165,6 +188,9 @@ def _rebuild(like, leaves):
     iterator ``leaves``."""
     if like is None:
         return None
+    if isinstance(like, dict):
+        rebuilt = {k: _rebuild(like[k], leaves) for k in _keys(like)}
+        return type(like)((k, rebuilt[k]) for k in like)
     if isinstance(like, tuple) and hasattr(like, "_fields"):
         return type(like)(*(_rebuild(sub, leaves) for sub in like))
     if isinstance(like, (tuple, list)):
@@ -172,11 +198,14 @@ def _rebuild(like, leaves):
     return next(leaves)
 
 
-def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
-    """A tensor leaf as the array the JAX package writes for it.  numpy
-    has no bfloat16: JAX's ``np.asarray`` gives an ml_dtypes array, which
-    ``np.savez`` stores as 2-byte voids; a bfloat16 tensor is written as
-    the same bytes (its bits as a ``V2`` array)."""
+def _to_numpy(leaf) -> np.ndarray:
+    """A leaf (a tensor, or a host array taken as it is) as the array the
+    JAX package writes for it.  numpy has no bfloat16: JAX's
+    ``np.asarray`` gives an ml_dtypes array, which ``np.savez`` stores as
+    2-byte voids; a bfloat16 tensor is written as the same bytes (its bits
+    as a ``V2`` array)."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.asarray(leaf)
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2"))

@@ -175,8 +175,8 @@ class EventRunner(Runner):
 
 class FrameRunner(Runner):
     """Drives a dense frame network on the accumulated frame per micro-batch
-    (the frame models take the frame tensor; the numpy oracle reads a CPU
-    one as an array)."""
+    (the frame models take the frame tensor; the numpy oracle reads it on
+    the host)."""
 
     def feed_network(self, network, events_batch, frame, reset_state):
         return network(frame)

@@ -173,6 +173,40 @@ the one-stream kernels):
     batch, EVT3, CRC-32C); device_prefetch delivering 16 pinned batches to
     the card in order.
 
+Then training and the train, evaluate and run_networks CLIs, at full width
+(one n-data tree under a temporary directory for phases 28 and 29, written
+by phase 25's writer with 8 train examples):
+
+27. trainer: models/train.Trainer on configs/efcn_event.yml's eFCN with 100
+    classes (C + B*5 = conv7's 110), the train CLI's seeded init, batches
+    of 16 frames integrated on the card from seeded uniform streams with
+    build_targets boxes: the first step's loss within 1e-5 of the same
+    step on the CPU at 'highest', and every gradient within 1e-4 of each
+    tensor's largest of the CPU's with its max-pools routed as on the card
+    (a pool's gradient jumps where window values tie to rounding; the
+    windows routed otherwise, and the plain CPU step's distance, are
+    printed), the cuDNN/cuBLAS TF32 and cuDNN deterministic flags the
+    backward ran under (read by a gradient hook), and the distance at
+    'default'; 30 Adam steps at 'highest' and 'default' (the loss finite
+    and falling; median ms a step over steps 10-30 by CUDA events,
+    frames/s, peak device memory) and at 'highest' without cuDNN's
+    deterministic choice; 8 steps against 4, .npz + .opt.npz, a fresh
+    Trainer resumed from them and 4 more: parameters and Adam moments
+    bit-equal;
+28. train + evaluate CLIs: scripts.train (4 steps of batch 4,
+    --checkpoint_every 2), --resume_from for 2 more (Adam count 6), then
+    scripts.evaluate on the resumed checkpoint in 'dense' and in
+    'sparse_pallas' (K3/K4 counted: K3 only, the eFCN's convs are stride
+    1; the first K3 call within 1e-5 * (1 + max |plain|) of its plain
+    version): each run's JSON line and wall time;
+29. run_networks CLI: the step runner in 'sparse_pallas' (K3/K4 counted,
+    the first K3 call held as in 28), the scan runner on
+    configs/efcn_event_full.yml (K1 counted, one call an example, the
+    first bit-equal to its plain version), the same with --ts_window 16
+    (the 'events' engine ignores the window, as in the JAX package: K1
+    again, K2 not launched), and YoloFrameJax through the frame runner:
+    each run's stats line.
+
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's to K6's ``ms`` are their device time per call from
 torch.profiler (K1's: the binning pass and the scan, also with a stream
@@ -1765,28 +1799,42 @@ def k1_streams_phase(dev, smi, s=K1_STREAMS):
 
 
 @contextlib.contextmanager
-def k1_on_path():
-    """Keeps the inputs and the output of the first K1 call made on the
-    path driven inside (``integrate_parallel`` looks ``surface_scan_events``
-    up in its module at each call), to hold that call against the plain
-    version on the same inputs after the run (:func:`check_k1_on_path`)."""
-    from async_ev_cnn_torch.ops import integrate as it
+def first_call(module, name: str):
+    """Keeps the inputs and the output of the first call of ``module.name``
+    made inside (the callers look it up in its module at each call), to
+    hold that call against its plain version on the same inputs after the
+    run; the spy carries the wrapper's name, which callers index counts
+    by."""
+    import functools
 
-    real, seen = it.surface_scan_events, []
+    real, seen = getattr(module, name), []
 
-    def spy(*args):
+    @functools.wraps(real)
+    def spy(*args, **kwargs):
         if seen:
-            return real(*args)
-        kept = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-        out = real(*args)
-        seen.append((kept, out.clone()))
+            return real(*args, **kwargs)
+        def keep(values):
+            return tuple(a.clone() if torch.is_tensor(a) else a for a in values)
+
+        kept = keep(args)
+        out = real(*args, **kwargs)
+        seen.append((kept, kwargs, out.clone() if torch.is_tensor(out) else keep(out)))
         return out
 
-    it.surface_scan_events = spy
+    setattr(module, name, spy)
     try:
         yield seen
     finally:
-        it.surface_scan_events = real
+        setattr(module, name, real)
+
+
+def k1_on_path():
+    """:func:`first_call` of K1 (``integrate_parallel`` looks
+    ``surface_scan_events`` up in its module at each call), checked by
+    :func:`check_k1_on_path` after the run."""
+    from async_ev_cnn_torch.ops import integrate as it
+
+    return first_call(it, "surface_scan_events")
 
 
 def check_k1_on_path(seen, what) -> str:
@@ -1794,7 +1842,7 @@ def check_k1_on_path(seen, what) -> str:
     from async_ev_cnn_torch.ops import surface_scan as sc
 
     require(len(seen) == 1, f"{what}: no K1 call on the path")
-    args, out = seen[0]
+    args, _, out = seen[0]
     plain = sc.surface_scan_events_plain(*args)
     require(bit_equal(out, plain),
             f"{what}: K1 on the path's inputs {tuple(out.shape)} != its plain version")
@@ -1921,14 +1969,15 @@ def multistream_phase(model, num_classes, num_bbox, smi):
     return info
 
 
-def write_detection_tree(root: Path, rng, num_classes, args):
+def write_detection_tree(root: Path, rng, num_classes, args, train_examples=1):
     """A synthetic n-data detection tree at the config's example size:
     CLI_EXAMPLES test examples of CLI_EVENTS events (ts gaps of 1..14 µs),
-    one train and one validation example, annotations and params.npz."""
+    ``train_examples`` train examples and one validation example,
+    annotations and params.npz."""
     from async_ev_cnn_torch.data.file_reader import NReader
 
     (root / "annotations").mkdir(parents=True)
-    for split, k in (("train", 1), ("test", CLI_EXAMPLES), ("validation", 1)):
+    for split, k in (("train", train_examples), ("test", CLI_EXAMPLES), ("validation", 1)):
         (root / split).mkdir()
         for i in range(k):
             n = CLI_EVENTS
@@ -2128,6 +2177,429 @@ def data_plane_phase(dev, native_lib, smi):
           f"and CRC-32C bit-equal; device_prefetch: {len(got)} pinned batches ({mb:.2f} MB) "
           f"delivered to the card in order and equal to the host's in {pf_ms:.1f} ms; card "
           f"{smi!r}", flush=True)
+
+
+# ---- training and the CLIs (phases 27-29) --------------------------------------
+
+TRAIN_BATCH = 16
+# C + B*5 = 110, conv7's width in configs/efcn_event.yml
+TRAIN_CLASSES = 100
+TRAIN_BATCHES = 4
+TRAIN_EVENTS = 20_000
+TRAIN_STEPS = 30
+TRAIN_TIMED = slice(10, 30)
+TRAIN_RESUME = 4
+# the card's first training step against the CPU's at 'highest', both IEEE
+# float32 with the convs' sums in other orders: the loss within
+# TRAIN_LOSS_RTOL, each gradient within TRAIN_GRAD_TOL of that tensor's
+# largest gradient magnitude (the forward's conv-stack contract is 1e-4 a
+# layer; a gradient sums over the batch and the frame besides)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+CLI_TRAIN_EXAMPLES = 8
+
+
+def check_k3_on_path(seen, what) -> float:
+    """The kept K3 call within KERNEL_REL_TOL * (1 + max |plain|) of its
+    plain version (phase 7's tolerance); its largest difference."""
+    from async_ev_cnn_torch.ops import rulebook_gemm as rg
+
+    require(len(seen) == 1, f"{what}: no K3 call on the path")
+    args, kwargs, out = seen[0]
+    plain = rg.rulebook_gather_gemm_blocks_plain(*args)
+    err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+    scale = max(float(p.abs().max()) for p in plain)
+    require(err <= KERNEL_REL_TOL * (1 + scale),
+            f"{what}: K3 on the path's inputs differs from its plain version by {err}")
+    return err
+
+
+def train_batches(dev, args, rng, n_batches):
+    """``n_batches`` batches of TRAIN_BATCH frames, each integrated on the
+    card from a seeded uniform stream of TRAIN_EVENTS events
+    (``integrate_frame_chunked``, as the train CLI does), with grid targets
+    from ``build_targets`` of 1-3 seeded boxes a frame."""
+    from async_ev_cnn_torch.models.train import YoloTargets
+    from async_ev_cnn_torch.ops.integrate import integrate_frame_chunked
+    from async_ev_cnn_torch.scripts.train import build_targets
+
+    sh, sw = args.yolo_num_cells_h, args.yolo_num_cells_w
+    batches = []
+    for _ in range(n_batches):
+        frames, grids = [], []
+        for _ in range(TRAIN_BATCH):
+            events = synth_stream(rng, 1, TRAIN_EVENTS)
+            frames.append(integrate_frame_chunked(events, args.leak, H, W, device=dev)[0])
+            k = rng.randint(1, 4)
+            boxes = np.concatenate([rng.uniform(0.05, 0.95, (k, 2)),
+                                    rng.uniform(0.05, 0.5, (k, 2)),
+                                    rng.randint(0, TRAIN_CLASSES, (k, 1)),
+                                    np.zeros((k, 1))], axis=1).astype(np.float32)
+            grids.append(build_targets(boxes, sh, sw))
+        targets = YoloTargets(*(torch.from_numpy(np.stack(t)).to(dev) for t in zip(*grids)))
+        batches.append((torch.stack(frames), targets))
+    return batches
+
+
+def profile_step(fresh, batches, warm: int = 3) -> str:
+    """One training step (after ``warm`` steps) under torch.profiler: its
+    wall time, the device's busy share of it, and the ops that take the
+    most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, params, opt = fresh()
+    for i in range(warm):
+        params, opt, _ = trainer.step(params, opt, *batches[i % len(batches)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(params, opt, *batches[warm % len(batches)])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted(((e.key, e.self_device_time_total) for e in events
+                  if e.device_type == DeviceType.CPU), key=lambda e: -e[1])[:6]
+    return (f"wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
+            f"({100 * busy_ms / wall_ms:.1f}%), most device time in "
+            + ", ".join(f"{k[:40]} {us / 1e3:.3f} ms" for k, us in ops))
+
+
+def trainer_phase(dev, args, smi):
+    """Phase 27: the trainer on the full-width eFCN (configs/efcn_event.yml,
+    TRAIN_CLASSES classes so that C + B*5 is conv7's width), the train
+    CLI's seeded init, batches of TRAIN_BATCH frames integrated on the
+    card: the first step's loss and every gradient against the same step
+    on the CPU at 'highest', the CPU's max-pools routed as the card's
+    forward routed them (and the windows routed otherwise counted), with
+    the cuDNN and cuBLAS flags that the backward pass ran under, and the
+    distance at 'default'; TRAIN_STEPS Adam steps at 'highest' and at
+    'default' (the loss finite and falling; the median ms a step over
+    TRAIN_TIMED by CUDA events, frames/s, peak device memory), and at
+    'highest' with cuDNN free to choose its algorithms; then 8 steps
+    against 4, a save (.npz + .opt.npz), a fresh Trainer resumed from them
+    and 4 more: parameters and moments bit-equal."""
+    import tempfile
+
+    from async_ev_cnn_torch.layers.network import EventNetwork
+    from async_ev_cnn_torch.models import train as tt
+    from async_ev_cnn_torch.ops.conv import _apply_tier, set_matmul_precision
+    from async_ev_cnn_torch.scripts.train import init_params
+    from async_ev_cnn_torch.utils.checkpoint import load_params, save_params
+    from async_ev_cnn_torch.utils.weights import params_from_jax, params_to_jax
+
+    layer_defs = args.yolo_cnn_layers
+    num_bbox = args.yolo_num_bbox
+    grid = (args.yolo_num_cells_h, args.yolo_num_cells_w)
+    require(TRAIN_CLASSES + 5 * num_bbox == list(layer_defs.values())[-1][3],
+            "conv7's width is not C + B*5")
+    net = EventNetwork(layer_defs, H, W, leak=args.leak, alpha=0.1,
+                       padding=args.yolo_cnn_padding)
+    init = init_params(layer_defs)
+    batches = train_batches(dev, args, np.random.RandomState(27), TRAIN_BATCHES)
+    cpu = torch.device("cpu")
+
+    def fresh(where=dev, start=init):
+        trainer = tt.Trainer(net, TRAIN_CLASSES, num_bbox, grid)
+        params = params_from_jax(start, where)
+        return trainer, params, trainer.init(params)
+
+    @contextlib.contextmanager
+    def pool_routing(replay=None):
+        """``dense_forward``'s max-pools with their argmax kept (in call
+        order), or, given ``replay``, routed by those kept on another run:
+        the pools' values and gradients then go through the same window
+        elements as there (a pool's gradient jumps where two window values
+        tie to rounding, so two devices' roundings may route it apart)."""
+        import torch.nn.functional as F
+
+        from async_ev_cnn_torch.layers import network as tnet
+
+        real, kept, flips = tnet.maxpool_dense, [], []
+
+        def pool(x, ksize, stride, padding="VALID"):
+            out, idx = F.max_pool2d(x, ksize, stride, return_indices=True)
+            if replay is None:
+                kept.append(idx)
+                return out
+            route = replay[len(flips)].to(x.device)
+            flips.append(int((idx != route).sum()))
+            return x.flatten(-2).gather(-1, route.flatten(-2)).view(route.shape)
+
+        tnet.maxpool_dense = pool
+        try:
+            yield kept, flips
+        finally:
+            tnet.maxpool_dense = real
+
+    def first_step(where, replay=None):
+        trainer, params, opt = fresh(where)
+        frames, targets = batches[0]
+        flags = []
+        params["w_conv1"].register_hook(lambda g: flags.append(
+            (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)))
+        with pool_routing(replay) as (kept, flips):
+            _, _, loss = trainer.step(params, opt, frames.to(where),
+                                      tt.YoloTargets(*(t.to(where) for t in targets)))
+        grads = params_to_jax({k: p.grad for k, p in params.items()})
+        return float(loss), grads, flags, kept, flips
+
+    def cudnn_free(device):  # the tier's flags, cuDNN free to choose algorithms
+        _apply_tier()
+        return contextlib.nullcontext()
+
+    try:
+        # ---- the first step, card against CPU ----
+        set_matmul_precision("highest")
+        loss_c, grads_c, flags_c, routes, _ = first_step(dev)
+        loss_h, grads_h, _, _, _ = first_step(cpu)
+        # the CPU's step again, each pool routed as on the card
+        loss_r, grads_r, _, _, flips = first_step(cpu, replay=routes)
+        set_matmul_precision("default")
+        _, grads_t, flags_t, _, _ = first_step(dev)
+        set_matmul_precision("highest")
+        require(flags_c == [(False, False, True)],
+                f"the backward at 'highest' ran under (cudnn tf32, cublas tf32, "
+                f"deterministic) = {flags_c}")
+        require(flags_t == [(True, True, True)], f"the backward at 'default' ran under {flags_t}")
+        require(torch.backends.cudnn.deterministic is False,
+                "the trainer left cuDNN's deterministic flag on")
+
+        def rel_errs(grads, ref):
+            return {k: float(np.abs(grads[k] - ref[k]).max() / np.abs(ref[k]).max())
+                    for k in ref}
+
+        errs = rel_errs(grads_c, grads_r)
+        own_errs, tf32_errs = rel_errs(grads_c, grads_h), rel_errs(grads_t, grads_r)
+        require(np.isfinite(loss_c) and all(abs(loss_c - x) <= TRAIN_LOSS_RTOL * abs(x)
+                                            for x in (loss_h, loss_r)),
+                f"the card's first loss {loss_c} against the CPU's {loss_h} ({loss_r} "
+                "routed as on the card)")
+        worst = max(errs, key=errs.get)
+        require(errs[worst] <= TRAIN_GRAD_TOL,
+                f"the card's gradient of {worst} differs from the CPU's (pools routed as on "
+                f"the card) by {errs[worst]:.2e} of its largest")
+
+        # ---- TRAIN_STEPS Adam steps at two tiers; the step's options ----
+        def run(steps):
+            trainer, params, opt = fresh()
+            losses, ms = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(steps):
+                frames, targets = batches[i % len(batches)]
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                params, opt, loss = trainer.step(params, opt, frames, targets)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+                losses.append(float(loss))
+            require(all(np.isfinite(losses)) and np.mean(losses[-5:]) < losses[0],
+                    f"the loss did not fall over {steps} steps: {losses}")
+            step_ms = float(np.median(ms[TRAIN_TIMED]))
+            return {"first_loss": losses[0], "last_loss": losses[-1], "step_ms": step_ms,
+                    "frames_s": TRAIN_BATCH / step_ms * 1e3,
+                    "mem_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+        tiers = {}
+        for tier in ("highest", "default"):
+            set_matmul_precision(tier)
+            tiers[tier] = run(TRAIN_STEPS)
+        set_matmul_precision("highest")
+        real_flags, tt._step_flags = tt._step_flags, cudnn_free
+        try:
+            free_step_ms = run(TRAIN_STEPS)["step_ms"]
+        finally:
+            tt._step_flags = real_flags
+        profile = profile_step(fresh, batches)
+
+        # ---- resume: 8 steps against 4 + save + a fresh Trainer + 4 ----
+        def steps(trainer, params, opt, first, n):
+            for i in range(first, first + n):
+                frames, targets = batches[i % len(batches)]
+                params, opt, _ = trainer.step(params, opt, frames, targets)
+            return params, opt
+
+        trainer, full, full_opt = fresh()
+        full, full_opt = steps(trainer, full, full_opt, 0, 2 * TRAIN_RESUME)
+        trainer, mid, mid_opt = fresh()
+        mid, mid_opt = steps(trainer, mid, mid_opt, 0, TRAIN_RESUME)
+        with tempfile.TemporaryDirectory() as tmp:
+            save_params(f"{tmp}/mid.npz", params_to_jax(mid))
+            tt.save_adam_state(f"{tmp}/mid.opt.npz", mid, mid_opt)
+            trainer, res, res_opt = fresh(start=load_params(f"{tmp}/mid.npz"))
+            tt.restore_adam_state(f"{tmp}/mid.opt.npz", res, res_opt)
+        res, res_opt = steps(trainer, res, res_opt, TRAIN_RESUME, TRAIN_RESUME)
+        torch.cuda.synchronize()
+        for k in full:
+            require(bit_equal(res[k].detach(), full[k].detach()),
+                    f"resumed {k} differs from the uninterrupted run's")
+            for m in ("exp_avg", "exp_avg_sq"):
+                require(bit_equal(res_opt.state[res[k]][m], full_opt.state[full[k]][m]),
+                        f"resumed {m} of {k} differs from the uninterrupted run's")
+    finally:
+        set_matmul_precision("highest")
+    h, d = tiers["highest"], tiers["default"]
+    print(f"trainer: eFCN {H}x{W} conv1..conv7, {TRAIN_CLASSES} classes, batch {TRAIN_BATCH} "
+          f"frames of {TRAIN_EVENTS} events integrated on the card; first step card against "
+          f"CPU at 'highest': loss {loss_c:.6f} / {loss_h:.6f}; with the CPU's pools routed "
+          f"as on the card, gradients within {errs[worst]:.2e} of each tensor's largest "
+          f"(worst {worst}; tolerance {TRAIN_GRAD_TOL}; at 'default' "
+          f"{max(tf32_errs.values()):.2e}); pool windows routed otherwise on the CPU "
+          f"{flips} (pool1..pool5 of {[int(r.numel()) for r in routes]}), the gradients of "
+          f"each routing {max(own_errs.values()):.2e} apart (worst "
+          f"{max(own_errs, key=own_errs.get)}); backward under (cudnn tf32, cublas tf32, "
+          f"deterministic) {flags_c[0]} at 'highest' and {flags_t[0]} at 'default'; "
+          f"{TRAIN_STEPS} Adam steps: 'highest' loss "
+          f"{h['first_loss']:.3f} -> {h['last_loss']:.3f}, {h['step_ms']:.3f} ms a step "
+          f"(median of steps {TRAIN_TIMED.start}-{TRAIN_TIMED.stop}), {h['frames_s']:.1f} "
+          f"frames/s, peak {h['mem_mib']:.1f} MiB; 'default' loss {d['first_loss']:.3f} -> "
+          f"{d['last_loss']:.3f}, {d['step_ms']:.3f} ms, {d['frames_s']:.1f} frames/s, peak "
+          f"{d['mem_mib']:.1f} MiB; 'highest' without cuDNN's deterministic choice "
+          f"{free_step_ms:.3f} ms a step; resume ({2 * TRAIN_RESUME} steps against "
+          f"{TRAIN_RESUME} + .npz/.opt.npz + {TRAIN_RESUME}): parameters and moments "
+          f"bit-equal; a profiled 'highest' step: {profile}; card {smi!r}", flush=True)
+    return {"highest": h, "default": d, "free_step_ms": free_step_ms}
+
+
+def cli_phases(dev, args, num_classes, smi):
+    """Phases 28 and 29 on one synthetic n-data tree under a temporary
+    directory (phase 25's writer with CLI_TRAIN_EXAMPLES train examples).
+
+    28: ``scripts.train`` (its main) at full width with --checkpoint_every,
+    then --resume_from its checkpoint, then ``scripts.evaluate`` on the
+    resumed checkpoint in 'dense' and in 'sparse_pallas' (the K3/K4 counts
+    set to 0 just before and read just after, the first K3 call held
+    against its plain version): each run's JSON line and wall time.
+
+    29: ``scripts.run_networks`` on the same tree and checkpoint: the step
+    runner in 'sparse_pallas' (K3/K4 counted, the first K3 call held), the
+    scan runner on configs/efcn_event_full.yml (K1 counted, its first call
+    bit-equal to its plain version), the scan runner with --ts_window (the
+    'events' engine ignores the window, in both packages: K1 again, K2 not
+    launched), and YoloFrameJax through the frame runner: each run's stats
+    line."""
+    import tempfile
+
+    from async_ev_cnn_torch.ops import rulebook_gemm as rg
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.scripts import evaluate, run_networks, train
+    from async_ev_cnn_torch.scripts.train import opt_state_path
+    from async_ev_cnn_torch.utils.config import config
+
+    cfg = str(HERE / "configs" / "efcn_event.yml")
+    full_cfg = str(HERE / "configs" / "efcn_event_full.yml")
+    on_dev = ["--device", str(dev)]
+
+    def scored(line):
+        """evaluate's JSON line with ``ap_per_class`` cut to the classes
+        that have ground truth (the others are null)."""
+        aps = line["ap_per_class"]
+        return {**{k: v for k, v in line.items() if k != "ap_per_class"},
+                "ap_per_class (classes with ground truth)":
+                    {i: a for i, a in enumerate(aps) if a is not None}}
+
+    def timed(main, argv):
+        """A CLI's main with its standard output kept: its value, its last
+        line as JSON, its wall time in s."""
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            value = main(argv + on_dev)
+        torch.cuda.synchronize()
+        return value, json.loads(out.getvalue().strip().splitlines()[-1]), \
+            time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tree = str(tmp / "tree")
+        write_detection_tree(Path(tree), np.random.RandomState(28), num_classes,
+                             config(["-c", cfg]), train_examples=CLI_TRAIN_EXAMPLES)
+        data = ["--input_data_dir", tree]
+        # ---- 28. train, resume, evaluate ----
+        ckpt, resumed = str(tmp / "efcn.npz"), str(tmp / "efcn_resumed.npz")
+        _, first, first_s = timed(train.main, ["-c", cfg, *data, "--train_steps", "4",
+                                               "--batch_size", "4", "--checkpoint_every", "2",
+                                               "--log_every", "1", "--save_to", ckpt])
+        _, second, second_s = timed(train.main, ["-c", cfg, *data, "--train_steps", "2",
+                                                 "--batch_size", "4", "--resume_from", ckpt,
+                                                 "--save_to", resumed])
+        for line in (first, second):
+            require(np.isfinite(line["final_loss"]), f"train CLI: {line}")
+        with np.load(opt_state_path(resumed)) as z:
+            require(int(z["leaf_0"]) == 6, f"the resumed run's Adam count {z['leaf_0']}")
+        evals = {}
+        for mode in ("dense", "sparse_pallas"):
+            rg.reset_launches()
+            with first_call(rg, "rulebook_gather_gemm_blocks") as seen:
+                result, line, secs = timed(evaluate.main, ["-c", cfg, *data, "--restore_net",
+                                                           resumed, "--mode", mode])
+            launches = dict(rg.LAUNCHES)
+            require(line["examples"] == CLI_EXAMPLES and 0.0 <= result["mAP"] <= 1.0,
+                    f"evaluate in {mode!r}: {line}")
+            if mode == "sparse_pallas":
+                require(launches["rulebook_gather_gemm_blocks"] > 0
+                        and launches["rulebook_gather_gemm"] == 0,
+                        f"evaluate in 'sparse_pallas' launched {launches} (stride-1 eFCN: "
+                        "K3 only)")
+                k3_err = check_k3_on_path(seen, "evaluate --mode sparse_pallas")
+            else:
+                require(launches == {"rulebook_gather_gemm_blocks": 0,
+                                     "rulebook_gather_gemm": 0},
+                        f"evaluate in 'dense' launched {launches}")
+            evals[mode] = (line, secs, launches)
+        print(f"train-evaluate-cli: scripts.train on {CLI_TRAIN_EXAMPLES} n-data train "
+              f"examples of {CLI_EVENTS} events at {H}x{W}, 4 steps of batch 4 with "
+              f"--checkpoint_every 2: {json.dumps(first)} in {first_s:.2f} s; --resume_from "
+              f"for 2 more: {json.dumps(second)} in {second_s:.2f} s (Adam count 6); "
+              "scripts.evaluate on the resumed checkpoint over "
+              f"{CLI_EXAMPLES} test examples: " + "; ".join(
+                  f"{mode}: {json.dumps(scored(line))} in {secs:.2f} s, launches {launches}"
+                  for mode, (line, secs, launches) in evals.items())
+              + f"; the first K3 call within {k3_err:.2e} of its plain version; card {smi!r}",
+              flush=True)
+
+        # ---- 29. run_networks ----
+        runs = []
+        rg.reset_launches()
+        with first_call(rg, "rulebook_gather_gemm_blocks") as seen:
+            stats, _, secs = timed(run_networks.main, ["-c", cfg, *data, "--restore_net",
+                                                       resumed, "--mode", "sparse_pallas"])
+        launches = dict(rg.LAUNCHES)
+        require(launches["rulebook_gather_gemm_blocks"] > 0
+                and launches["rulebook_gather_gemm"] == 0,
+                f"run_networks 'sparse_pallas' launched {launches}")
+        k3_err = check_k3_on_path(seen, "run_networks --mode sparse_pallas")
+        runs.append(("step runner, 'sparse_pallas'", stats, secs,
+                     f"launches {launches}, the first K3 call within {k3_err:.2e} of plain"))
+        for what, extra in (("scan runner, efcn_event_full.yml", []),
+                            ("scan runner, --ts_window 16", ["--ts_window", "16"])):
+            sc.reset_launches()
+            with k1_on_path() as seen_k1:
+                stats, _, secs = timed(run_networks.main, ["-c", full_cfg, *data,
+                                                           "--restore_net", resumed, *extra])
+            launches = dict(sc.LAUNCHES)
+            require(stats["examples"] == CLI_EXAMPLES
+                    and launches == scan_launches(events=CLI_EXAMPLES),
+                    f"run_networks {what}: {stats}, launches {launches}")
+            k1_shape = check_k1_on_path(seen_k1, f"run_networks {what}")
+            runs.append((what, stats, secs, f"launches {launches}, the first K1 call "
+                         f"({k1_shape}) bit-equal to its plain version"))
+        stats, _, secs = timed(run_networks.main, ["-c", cfg, *data, "--restore_net", resumed,
+                                                   "--network", "YoloFrameJax"])
+        require(stats["steps"] > 0 and stats["events_per_sec"] > 0,
+                f"run_networks YoloFrameJax: {stats}")
+        runs.append(("YoloFrameJax, frame runner", stats, secs, "cuDNN only"))
+    print(f"run-networks-cli: scripts.run_networks on the same {CLI_EXAMPLES} test examples: "
+          + "; ".join(f"{what}: {json.dumps(stats)} in {secs:.2f} s, {note}"
+                      for what, stats, secs, note in runs) + f"; card {smi!r}", flush=True)
+    return evals, runs
 
 
 def main() -> int:
@@ -2426,6 +2898,8 @@ def main() -> int:
     serving = multistream_phase(model, num_classes, num_bbox, smi)
     serve_cli_phase(dev, layer_defs, num_classes, smi)
     data_plane_phase(dev, native_lib, smi)
+    trainer_phase(dev, args, smi)
+    cli_phases(dev, args, num_classes, smi)
 
     scans = [
         {"name": "surface_scan_events", "replaces": "async_ev_cnn_tpu/ops/pallas_scan.py:273",
