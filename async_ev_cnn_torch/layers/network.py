@@ -267,6 +267,20 @@ class EventNetwork:
             for ld in self.event_layers[1:]
         )
 
+    # ---- the model axis -------------------------------------------------
+    # Identities here.  ``parallel.streams`` runs a network over one rank's
+    # share of every conv's output channels and overrides them with the
+    # collectives that such a rank needs around the layer calls.
+
+    def _conv_input(self, ld: LayerDef, io: LayerIO) -> LayerIO:
+        """The predecessor's output as conv ``ld`` reads it."""
+        return io
+
+    def _layer_output(self, ld: LayerDef, state, io: LayerIO):
+        """A sequential layer's new state and output as the next layer
+        and the next chunk read them."""
+        return state, io
+
     # ---- state ----------------------------------------------------------
 
     def init_state(self, params, device=None) -> tuple:
@@ -323,9 +337,12 @@ class EventNetwork:
             elif ld.kind == "conv":
                 st, prev_io = conv_step(
                     ld.spec, params[f"w_{ld.name}"], params[f"b_{ld.name}"], st,
-                    prev_io, delta_leak, counts=self.layer_counts[ld.name])
+                    self._conv_input(ld, prev_io), delta_leak,
+                    counts=self.layer_counts[ld.name])
+                st, prev_io = self._layer_output(ld, st, prev_io)
             else:  # pool
                 st, prev_io = pool_step(ld.spec, st, prev_io, delta_leak)
+                st, prev_io = self._layer_output(ld, st, prev_io)
             states.append(st)
             ios[ld.name] = prev_io
         return tuple(states), ios
@@ -368,7 +385,8 @@ class EventNetwork:
                 return io.featuremap
             ld, st = layers[i], states[i]
             if fuse and i in self._s2d_pairs and (upto is None or upto >= i + 2):
-                fm = stem.fused_conv_pool(io.featuremap, params[f"w_{ld.name}"],
+                fm = stem.fused_conv_pool(self._conv_input(ld, io).featuremap,
+                                          params[f"w_{ld.name}"],
                                           params[f"b_{ld.name}"], ld.spec.alpha)
                 # one cast at the pair's pooled output: the float32 conv
                 # output is never stored
@@ -379,7 +397,7 @@ class EventNetwork:
                 continue
             if ld.kind == "conv":
                 _, io = conv_step(ld.spec, params[f"w_{ld.name}"],
-                                  params[f"b_{ld.name}"], st, io, 0.0)
+                                  params[f"b_{ld.name}"], st, self._conv_input(ld, io), 0.0)
             else:
                 _, io = pool_step(ld.spec, st, io, 0.0)
             i += 1

@@ -130,7 +130,15 @@ class Trainer:
     :meth:`init` makes them leaf tensors that require grad and returns the
     optimizer, the JAX package's ``opt_state``.  :meth:`step` updates the
     tensors in place and returns ``(params, opt_state, loss)`` as the JAX
-    step does."""
+    step does.
+
+    With a ``mesh`` (one with a ``data`` axis, e.g. :func:`~async_ev_cnn_torch.
+    parallel.make_mesh`) the step is data-parallel over ``data``: each rank
+    takes its slice of the (global, the same on every rank) batch, the
+    mean loss of its slice, and the gradients averaged over the ranks by
+    one all_reduce of a flat bucket before Adam, so the parameters and
+    Adam's state stay the same on every rank; the loss returned is the
+    global mean.  A batch that ``data`` does not divide raises."""
 
     def __init__(
         self,
@@ -141,10 +149,14 @@ class Trainer:
         learning_rate: float = 1e-3,
         mesh=None,
     ):
+        self._data = None
         if mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh waits for the port's multi-device "
-                "slice (ROADMAP queue 1 item 6); train on one device with mesh=None")
+            from async_ev_cnn_torch.parallel.mesh import Comm, mesh_device
+
+            if "data" not in (mesh.mesh_dim_names or ()):
+                raise ValueError(
+                    f"a training mesh needs a 'data' axis, got {mesh.mesh_dim_names}")
+            self._data = Comm(mesh.get_group("data"), mesh_device(mesh))
         self.net = net
         self.num_classes = num_classes
         self.num_bbox = num_bbox
@@ -180,10 +192,25 @@ class Trainer:
         """One Adam step on a batch of integrated frames ``[N, H, W]`` and
         :class:`YoloTargets` with a leading batch axis; the loss is the
         batch's before the step."""
+        data = self._data
+        if data is not None:
+            n = frames.shape[0]
+            if n % data.size:
+                raise ValueError(
+                    f"batch of {n} not divisible by the mesh's data axis ({data.size})")
+            rows = slice(data.rank * n // data.size, (data.rank + 1) * n // data.size)
+            frames = frames[rows]
+            targets = YoloTargets(*(t[rows] for t in targets))
         with _step_flags(frames.device):
             opt_state.zero_grad(set_to_none=True)
             loss = self._batch_loss(params, frames, targets)
             loss.backward()
+            if data is not None:
+                grads = [params[k].grad for k in sorted(params)]
+                flat = data.sum(torch.cat([g.reshape(-1) for g in grads])) / data.size
+                for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                    g.copy_(part.view_as(g))
+                loss = data.sum(loss.detach()) / data.size
             opt_state.step()
         return params, opt_state, loss.detach()
 

@@ -14,14 +14,22 @@ are accepted too; ``YoloFrameNumpy`` is the numpy oracle.  ``--runner
 step`` feeds one micro-batch a call (``EventRunner``/``FrameRunner``),
 ``--runner scan`` one example a call (``ScanEventRunner``); both print one
 JSON stats line.  ``--profile`` writes a ``torch.profiler`` Chrome trace
-to ``./torch_trace``.  ``--num_streams > 1`` (mesh-sharded serving) waits
-for the multi-device slice; ``scripts/serve.py`` serves several streams
-on one card.
+to ``./torch_trace``.  ``--num_streams S`` (S > 1) serves S examples at
+once through :class:`~async_ev_cnn_torch.utils.runner.MultiStreamRunner`:
+in one process a world of 1 (every stream on the stream axis of one
+device); under ``torchrun`` its ranks, or with ``--num_ranks N`` N ranks
+that this command starts on the host (``parallel/launch.py``; NCCL on the
+card, which takes one rank a card, gloo with ``--device cpu``):
+
+    torchrun --nproc_per_node 4 -m async_ev_cnn_torch.scripts.run_networks -c CFG --num_streams 8
+    python -m async_ev_cnn_torch.scripts.run_networks -c CFG --num_streams 4 --num_ranks 2 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import sys
 
@@ -47,6 +55,8 @@ def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default=None,
                      help="torch device; the card ('cuda') when not given")
+    pre.add_argument("--num_ranks", type=int, default=1,
+                     help="ranks to start on this host for --num_streams > 1")
     dev_args, rest = pre.parse_known_args(argv)
     args = config(rest)
 
@@ -83,22 +93,33 @@ def main(argv=None):
         raise SystemExit(
             f"unknown network {args.network!r}; choose one of {sorted(_NETWORKS)}"
         )
-    network = network_class(
-        h_frame=args.frame_h, w_frame=args.frame_w,
-        num_classes=reader.num_classes(), cnn_layers=args.yolo_cnn_layers,
-        cnn_padding=args.yolo_cnn_padding, h_cells=args.yolo_num_cells_h,
-        w_cells=args.yolo_num_cells_w, num_bbox=args.yolo_num_bbox,
-        alpha=0.1, leak=args.leak, checkpoint=args.restore_net,
-        conv_mode=args.mode, ts_window=args.ts_window,
-        stem_fusion=args.stem_fusion, window_budget_mb=args.window_budget_mb,
-        activation_dtype=args.activation_dtype,
-        **({} if network_class is YoloFrameNumpy else {"device": device}),
-    )
+
+    def build(device):
+        return network_class(
+            h_frame=args.frame_h, w_frame=args.frame_w,
+            num_classes=reader.num_classes(), cnn_layers=args.yolo_cnn_layers,
+            cnn_padding=args.yolo_cnn_padding, h_cells=args.yolo_num_cells_h,
+            w_cells=args.yolo_num_cells_w, num_bbox=args.yolo_num_bbox,
+            alpha=0.1, leak=args.leak, checkpoint=args.restore_net,
+            conv_mode=args.mode, ts_window=args.ts_window,
+            stem_fusion=args.stem_fusion, window_budget_mb=args.window_budget_mb,
+            activation_dtype=args.activation_dtype,
+            **({} if network_class is YoloFrameNumpy else {"device": device}),
+        )
+
     if args.num_streams > 1:
-        raise NotImplementedError(
-            "--num_streams > 1 shards streams over a device mesh and waits for "
-            "the port's multi-device slice (ROADMAP queue 1 item 6); serve "
-            "several streams on one card with scripts/serve.py")
+        if network_class is not YoloEventTorch:
+            raise SystemExit("--num_streams > 1 requires an event network")
+        if args.ts_window:
+            # the JAX CLI's refusal (there vmap turns the window's exact
+            # fallback into a both-branches select), kept for the same flags
+            raise SystemExit(
+                "--ts_window is a per-stream dispatch knob; it does not "
+                "compose with --num_streams > 1")
+        return _serve_streams(args, dev_args, rest, reader, build, device)
+    if dev_args.num_ranks > 1:
+        raise SystemExit("--num_ranks takes --num_streams > 1")
+    network = build(device)
 
     if args.runner == "scan":
         if not isinstance(network, YoloEventTorch):
@@ -124,6 +145,44 @@ def main(argv=None):
         print(f"profiler trace written to {TRACE_DIR}")
     print(json.dumps(stats))
     return stats
+
+
+def _serve_streams(args, dev_args, argv, reader, build, device):
+    """``--num_streams > 1``: the multi-stream runner over this process's
+    ranks, or over ``--num_ranks`` ranks started here (rank 0's stats).
+    The world starts before the network is built, so each rank builds it
+    on its own card; the parent of ``--num_ranks`` builds none."""
+    import torch.distributed as dist
+
+    from async_ev_cnn_torch.parallel import world
+    from async_ev_cnn_torch.utils.profiling import trace
+    from async_ev_cnn_torch.utils.runner import MultiStreamRunner
+
+    if dev_args.num_ranks > 1 and not dist.is_initialized():
+        from async_ev_cnn_torch.parallel.launch import launch
+
+        rank_argv = list(argv) + (["--device", dev_args.device] if dev_args.device else [])
+        stats = launch(_rank_main, dev_args.num_ranks, args=(rank_argv,),
+                       backend="nccl" if device.type == "cuda" else "gloo")[0]
+        print(json.dumps(stats))
+        return stats
+    with world(device) as rank_device:
+        network = build(rank_device)
+        with trace(TRACE_DIR if args.profile else None):
+            stats = MultiStreamRunner(args, reader, device=rank_device).run(network)
+        rank = dist.get_rank()
+    if args.profile:
+        print(f"profiler trace written to {TRACE_DIR}")
+    if rank == 0:
+        print(json.dumps(stats))
+    return stats
+
+
+def _rank_main(argv):
+    """One rank of ``--num_ranks``: the command on this rank, its lines
+    kept off the terminal (the parent prints rank 0's stats)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
 
 
 if __name__ == "__main__":

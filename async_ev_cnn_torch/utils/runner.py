@@ -8,9 +8,8 @@ network, record wall-clock timings and events/s.  The runners take a
 ``device`` (``cuda`` when not given; raises where there is none) for what
 they build themselves: the integrated frame and the packed chunks.  A
 timed step ends in a copy of its result to the host, which waits for the
-card.  :class:`MultiStreamRunner` (the mesh-sharded serving runner) waits
-for the multi-device slice; one-host multi-stream serving is
-:class:`~async_ev_cnn_torch.utils.serving.StreamingPipeline`.
+card.  :class:`MultiStreamRunner` serves S examples at once over a
+``data`` mesh (:mod:`async_ev_cnn_torch.parallel`), every rank its share.
 """
 
 from __future__ import annotations
@@ -189,14 +188,16 @@ class ScanEventRunner(Runner):
 
     profile_integration = False
 
-    def _pack(self, events):
+    def _pack(self, events, device=None):
         """Chunk by count, or by µs bins (padded variable occupancy) when
-        ``batch_event_usec`` is set — mirrors split_micro_batches."""
+        ``batch_event_usec`` is set — mirrors split_micro_batches; on the
+        runner's device unless ``device`` is given."""
         args = self.args
+        device = self.device if device is None else device
         if getattr(args, "batch_event_usec", None):
             return pack_chunks_usec(events, args.batch_event_size, args.batch_event_usec,
-                                    device=self.device)
-        return pack_chunks(events, args.batch_event_size, device=self.device)
+                                    device=device)
+        return pack_chunks(events, args.batch_event_size, device=device)
 
     def run(self, model, max_examples=None, verbose=True):
         args = self.args
@@ -232,16 +233,87 @@ class ScanEventRunner(Runner):
         }
 
 
-class MultiStreamRunner(Runner):
-    """The JAX package's mesh-sharded serving runner (``--num_streams`` in
-    ``run_networks``).  It needs the multi-device engine, which the port
-    does not have yet."""
+class MultiStreamRunner(ScanEventRunner):
+    """Serving mode (``--num_streams`` in ``run_networks``): S examples
+    stream at once, sharded over a ``data`` mesh of ``min(S, world)``
+    ranks (a world of 1 without a process group: every stream on the
+    stream axis of one device).  Every rank reads the same S examples (the
+    reader's order is seeded) and runs its share: ``scan_parallel`` for an
+    all-'full' network (``--window_budget_mb`` split per local stream),
+    ``scan`` otherwise.  Streams shorter than the batch's longest are
+    padded with all-invalid chunks, exact no-op steps for every layer.
+    The stats are the same on every rank: events summed over the ranks, a
+    batch's time the slowest rank's.  A process group that ``run`` starts
+    (a world of 1, or ``torchrun``'s) ends with it."""
 
     def run(self, model, max_examples=None, verbose=True):
-        raise NotImplementedError(
-            "MultiStreamRunner shards streams over a device mesh and waits for "
-            "the port's multi-device slice (ROADMAP queue 1 item 6); serve "
-            "several streams on one card with utils.serving.StreamingPipeline")
+        from async_ev_cnn_torch.parallel import world
+
+        with world(self.device):
+            return self._run(model, max_examples, verbose)
+
+    def _run(self, model, max_examples, verbose):
+        import torch.distributed as dist
+
+        from async_ev_cnn_torch.parallel import MultiStreamEngine, make_mesh
+
+        args = self.args
+        s = args.num_streams
+        mesh = make_mesh(n_data=min(s, dist.get_world_size()), n_model=1,
+                         device=self.device)
+        eng = MultiStreamEngine(model.net, mesh)
+        params = eng.place_params(model.params)
+        rows = eng.streams(s)
+
+        total_batches = int(np.ceil(self.reader.test_size() / s))
+        if max_examples is not None:
+            total_batches = min(total_batches, max_examples)
+        scan_fn = eng.scan_parallel if model.net.is_all_full else eng.scan
+        times, own_events = [], 0
+        for i in range(total_batches):
+            streams = []
+            for _ in range(s):
+                _, events = self.reader.next_batch(
+                    1, dataset="test",
+                    preprocessing_fn=partial(data_transform, args=args),
+                    concat_features=False, threads=args.reader_threads,
+                )
+                streams.append(self._pack(events, device="cpu"))
+            t_max = max(c.y.shape[0] for c in streams)
+            streams = [pad_chunks_t(c, t_max) for c in streams]
+            chunks = EventChunk(*(torch.stack(f, dim=1) for f in zip(*streams)))
+            n_ev = int(chunks.valid[:, rows].sum())
+            own_events += n_ev
+            states = eng.init_states(model.params, s)
+            kw = {}
+            if model.net.is_all_full:
+                budget = getattr(args, "window_budget_mb", None)
+                if budget:
+                    # each device holds S / n_data streams' activations at once
+                    kw["window"] = model.net.auto_window(t_max, budget / (s // eng.n_data))
+            t0 = time.time()
+            states, outs = scan_fn(params, states,
+                                   eng.place_chunks(chunks, leading_time=True), **kw)
+            _to_host(outs[-1])  # host copy = true sync point
+            dt = time.time() - t0
+            times.append(dt)
+            if verbose:
+                print(f"Serving batch {i + 1}: {rows.stop - rows.start} of {s} streams x "
+                      f"{t_max} chunks in {dt:.4f}s ({n_ev / max(dt, 1e-9):,.0f} ev/s)")
+        # one collective: every rank's events and batch times
+        mine = torch.tensor([own_events, *times], dtype=torch.float64)
+        every = eng.data.all_gather(mine)
+        total_events = float(every[:, 0].sum())
+        times = every[:, 1:].amax(dim=0).numpy()
+        steady = np.array(times[1:] if len(times) > 1 else times)
+        per_batch_events = total_events / max(len(times), 1)
+        return {
+            "examples": total_batches * s,
+            "events_per_sec": float(total_events / max(times.sum(), 1e-9)),
+            "events_per_sec_steady": float(
+                per_batch_events * len(steady) / max(steady.sum(), 1e-9)
+            ),
+        }
 
 
 def pad_chunks_t(chunks: EventChunk, t: int) -> EventChunk:

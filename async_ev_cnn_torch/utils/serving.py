@@ -19,8 +19,17 @@ Events cross the link in the smallest wire tier each item fits
 plain, :mod:`async_ev_cnn_torch.utils.wire`), from pinned host memory by
 copies that do not block the host.  A group of S items unifies to its
 highest tier, and the pipeline never drops back below the highest tier it
-has dispatched (the tier era), as in the JAX package.  ``mesh`` serving
-raises ``NotImplementedError`` until the multi-device slice.
+has dispatched (the tier era), as in the JAX package.
+
+With a ``mesh`` (:func:`~async_ev_cnn_torch.parallel.make_mesh`) every rank
+runs a pipeline of its own over the same source: it packs, uploads and
+serves only its streams (``streams / n_data`` of each dispatch's items)
+through :class:`~async_ev_cnn_torch.parallel.MultiStreamEngine`'s network,
+one K1 call a dispatch for all of them, and yields their results.  Its
+epochs, rebase ledger, tier era and in-flight window are its own streams';
+outputs are not gathered a dispatch (at S=8, T=64 the decoded grids are
+31.5 MB): :meth:`StreamingPipeline.gather_results` assembles what the
+unsharded pipeline yields.
 
 Three faults of the JAX engine's epoch ledger are fixed here, on every
 stream (each has a test that records the divergence):
@@ -114,9 +123,11 @@ class StreamingPipeline:
     slot, and the state carries a leading stream axis on every leaf.
     ``wire`` is ``'auto'`` (the smallest tier each item fits) or pins a
     tier (``'ultra4'``, ``'ultra'`` and ``'compact'`` raise on an item that
-    does not fit).  ``mesh`` must be ``None``.  ``postprocess`` is applied
-    to each dispatch's ``[T, ...]`` (``[S, T, ...]``) network outputs on
-    the device.
+    does not fit).  ``mesh`` (a ``(data, model)`` mesh) serves this rank's
+    ``streams / n_data`` streams, ``streams >= 2`` and divisible by the
+    data axis; ``device`` is then the mesh's.  ``postprocess`` is applied
+    to each dispatch's ``[T, ...]`` (``[S, T, ...]``, the rank's streams
+    on a mesh) network outputs on the device.
     """
 
     def __init__(self, net, params, *, capacity=256, window=None,
@@ -130,9 +141,6 @@ class StreamingPipeline:
         if wire not in _WIRES:
             raise ValueError(
                 "wire must be 'auto', 'ultra4', 'ultra', 'compact' or 'plain'")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving waits for the port's multi-device slice")
         if keep_polarity and net.event_layers[0].spec.channels != 2:
             raise ValueError(
                 "keep_polarity serving needs a 2-channel (ON/OFF) surface "
@@ -144,6 +152,21 @@ class StreamingPipeline:
             # dispatch, and the engine, which knows `streams`, turns it off
             # for the batched shape; an explicit True/False is respected
             net = net.with_stem_fusion(False)
+        self._engine = None
+        self._slots = range(streams)  # the stream slots this pipeline serves
+        if mesh is not None:
+            from async_ev_cnn_torch.parallel import MultiStreamEngine
+
+            engine = MultiStreamEngine(net, mesh)
+            if streams < 2 or streams % engine.n_data:
+                raise ValueError(
+                    f"mesh serving needs streams (= {streams}) divisible by the "
+                    f"mesh's data axis (= {engine.n_data})")
+            rows = engine.streams(streams)
+            self._slots = range(rows.start, rows.stop)
+            self._engine = engine
+            net = engine.net
+            device = engine.device
         self._device = resolve_device(device)
         self._net = net
         self._capacity = capacity
@@ -155,12 +178,16 @@ class StreamingPipeline:
         self._rebase = rebase
         self._t_chunks = t_chunks
         self._post = postprocess if postprocess is not None else (lambda outs: outs)
-        self._params = {k: torch.as_tensor(v, device=self._device)
-                        for k, v in params.items()}
-        state = net.init_state(self._params, self._device)
-        if streams > 1:
-            state = tuple(type(s)(*(f.expand(streams, *f.shape).clone() for f in s))
-                          for s in state)
+        if self._engine is not None:
+            self._params = self._engine.place_params(params)
+            state = self._engine.init_states(params, streams)
+        else:
+            self._params = {k: torch.as_tensor(v, device=self._device)
+                            for k, v in params.items()}
+            state = net.init_state(self._params, self._device)
+            if streams > 1:
+                state = tuple(type(s)(*(f.expand(streams, *f.shape).clone() for f in s))
+                              for s in state)
         self._state = state
         #: per-stream int64 µs epoch subtracted from raw source timestamps
         self._epochs = [0] * streams
@@ -213,14 +240,16 @@ class StreamingPipeline:
     @property
     def state(self):
         """Current network state (a tuple of per-layer NamedTuples; every
-        leaf with a leading stream axis when ``streams > 1``)."""
+        leaf with a leading stream axis when ``streams > 1``); on a mesh,
+        this rank's shard of it."""
         return self._state
 
     @state.setter
     def state(self, new):
         """Install a restored mid-stream state; its structure (layer types,
-        field shapes and dtypes) must match the pipeline's.  Rebase epochs
-        are not part of the state (see the JAX engine's setter)."""
+        field shapes and dtypes) must match the pipeline's (on a mesh: this
+        rank's shard, as :attr:`state` gives it).  Rebase epochs are not
+        part of the state (see the JAX engine's setter)."""
         def structure(st):
             return [(type(s), tuple((tuple(f.shape), torch.as_tensor(f).dtype)
                                     for f in s)) for s in st]
@@ -232,6 +261,24 @@ class StreamingPipeline:
         self._state = tuple(
             type(s)(*(torch.as_tensor(f, device=self._device) for f in s))
             for s in new)
+
+    def gather_results(self, results) -> list[DispatchResult]:
+        """What the unsharded pipeline yields, from this rank's results of a
+        mesh pipeline: every ``data`` rank's streams of each dispatch's
+        outputs (tensors, or tuples of them, with the stream axis first)
+        and counts, and the events summed.  A collective: every rank calls
+        it with the results of the same dispatches.  Without a mesh the
+        results are returned as they are."""
+        eng = self._engine
+        if eng is None:
+            return list(results)
+        out = []
+        for r in results:
+            counts = eng.gather(torch.from_numpy(np.asarray(r.counts)), dim=0).numpy()
+            n = int(eng.data.sum(torch.tensor([r.n_events], dtype=torch.int64)))
+            out.append(DispatchResult(
+                _map_tensors(lambda x: eng.gather(x, dim=0), r.outputs), n, counts))
+        return out
 
     def pack(self, events: np.ndarray, t_chunks: int | None = None):
         """Pack a host ``[N, >=3]`` event array into this pipeline's wire
@@ -343,12 +390,6 @@ class StreamingPipeline:
         """Validate the source item of stream slot ``i``; returns ``(wire,
         deltas)``."""
         if isinstance(item, PreparedItem):
-            if item.stream is not None and item.stream != i:
-                raise ValueError(
-                    f"dispatch slot {i} received a PreparedItem for stream "
-                    f"{item.stream}: a shared producer queue delivered "
-                    "streams out of round-robin order — keep one ordered "
-                    "source slot per stream")
             if item.epoch is not None:
                 return item.wire, self._ledger_shift(i, item.epoch)
             deltas = np.asarray(item.deltas, np.int32)
@@ -371,24 +412,49 @@ class StreamingPipeline:
         # items dropped before dispatch, as well as this item's rebase
         return self.pack(ev), self._ledger_shift(i, self._epochs[i])
 
+    def _chunk_count(self, item, i: int) -> int:
+        """The chunks the source item of stream slot ``i`` gives a dispatch,
+        from its size and its slot alone (nothing is packed or admitted)."""
+        if isinstance(item, PreparedItem):
+            if item.stream is not None and item.stream != i:
+                raise ValueError(
+                    f"dispatch slot {i} received a PreparedItem for stream "
+                    f"{item.stream}: a shared producer queue delivered "
+                    "streams out of round-robin order — keep one ordered "
+                    "source slot per stream")
+            return item.wire[0].shape[0]
+        if isinstance(item, tuple):
+            return item[0].shape[0]
+        t = max(1, -(-len(item) // self._capacity))  # pack_wire's chunks
+        if self._t_chunks is None:
+            return t
+        if t > self._t_chunks:
+            raise ValueError(
+                f"{t} chunks of {self._capacity} events exceed "
+                f"t_chunks={self._t_chunks}; feed fewer events per item")
+        return self._t_chunks
+
     def _admit_group(self, group):
-        """Admit one dispatch's items (one a stream slot) and unify their
-        wire tiers; returns ``(wires, deltas [2, S])``."""
-        deltas = np.zeros((2, self._streams), np.int32)
+        """Admit one dispatch's items of this pipeline's stream slots (all
+        of them without a mesh) and unify their wire tiers; returns
+        ``(wires, deltas [2, S])``.  The group's shape is checked on every
+        item first, so on a mesh every rank raises on the same group before
+        any of them reaches a collective."""
+        ts = {self._chunk_count(item, i) for i, item in enumerate(group)}
+        if len(ts) > 1:
+            raise ValueError(
+                "streams must supply equally many chunks per dispatch "
+                f"(got chunk counts {sorted(ts)}); pad or rebatch the source")
+        deltas = np.zeros((2, len(self._slots)), np.int32)
         wires = []
-        for i, item in enumerate(group):
-            w, deltas[:, i] = self._admit(item, i)
+        for j, i in enumerate(self._slots):
+            w, deltas[:, j] = self._admit(group[i], i)
             wires.append(w)
         # every tier re-encodes exactly to any higher one on the host: a
         # mixed group unifies to its highest tier, and the pipeline never
         # drops back below the highest tier it has dispatched
         self._era = max(self._era, *(WIRE_TIERS[wire_format(w)] for w in wires))
         wires = [wire_to_tier(w, self.wire_tier) for w in wires]
-        ts = {w[0].shape[0] for w in wires}
-        if len(ts) > 1:
-            raise ValueError(
-                "streams must supply equally many chunks per dispatch "
-                f"(got chunk counts {sorted(ts)}); pad or rebatch the source")
         return wires, deltas
 
     def _shift_prev_ts(self, st, deltas: np.ndarray):
@@ -425,7 +491,8 @@ class StreamingPipeline:
         card is proven.  With ``streams > 1`` every ``streams`` consecutive
         items form one dispatch (item k feeds stream slot ``k % streams``)
         and a ragged tail is dropped.  The network state persists across
-        calls."""
+        calls.  On a mesh every rank takes the same source and yields its
+        own streams' results (:meth:`gather_results` assembles them)."""
         it = iter(source)
         in_flight: deque = deque()
 
@@ -452,7 +519,7 @@ class StreamingPipeline:
             # source is not staleness; a PreparedItem's events exist from
             # its prepare() call, and the dispatch ages from its oldest
             t_arrival = time.time()
-            for item in group:
+            for item in (group[i] for i in self._slots):
                 if isinstance(item, PreparedItem) and item.t_created is not None:
                     t_arrival = min(t_arrival, item.t_created)
             try:
@@ -464,7 +531,7 @@ class StreamingPipeline:
             # sub-plain tiers (the polarity plane, when present, is last)
             counts = [w[2] if len(w) == 3 else w[3] for w in wires]
             n = sum(int(c.sum()) for c in counts)
-            if self._streams == 1:
+            if self._streams == 1:  # no stream axis (a mesh has S >= 2)
                 wire, counts, deltas = wires[0], counts[0], deltas[:, 0]
             else:
                 wire = tuple(np.stack(parts) for parts in zip(*wires))
@@ -477,6 +544,13 @@ class StreamingPipeline:
             if len(in_flight) >= self._max_in_flight:
                 yield from release(self._max_in_flight // 2)
         yield from release(0)
+
+
+def _map_tensors(fn, x):
+    """``fn`` over the tensors of a (nested) tuple or list of tensors."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_tensors(fn, v) for v in x)
+    return fn(x)
 
 
 def threaded_source(make_items, fn=None, depth=4,

@@ -204,8 +204,36 @@ by phase 25's writer with 8 train examples):
     configs/efcn_event_full.yml (K1 counted, one call an example, the
     first bit-equal to its plain version), the same with --ts_window 16
     (the 'events' engine ignores the window, as in the JAX package: K1
-    again, K2 not launched), and YoloFrameJax through the frame runner:
-    each run's stats line.
+    again, K2 not launched), the multi-stream runner with --num_streams 2
+    in this process (an NCCL world of 1: K1 counted, one call on its
+    stream axis a batch of 2 examples, the first bit-equal to its plain
+    version) and in a process of its own started as torchrun starts a
+    rank (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR=127.0.0.1: the env://
+    rendezvous), and YoloFrameJax through the frame runner: each run's
+    stats line.
+
+Then the multi-device layer (async_ev_cnn_torch/parallel/), one process a
+device over torch.distributed:
+
+30. mesh: the one-card deployment, an NCCL world of 1, at full width with
+    the seeded weights at 'highest': MultiStreamEngine.scan_parallel on a
+    1 x 1 mesh, S=8 streams of 64 chunks, outputs and end surfaces
+    bit-equal to the meshless scan_parallel on the same [S, T, E] (K1
+    counted, one launch pair; its call bit-equal to its plain version);
+    MultiStreamEngine.scan in 'sparse_pallas', 2 clustered streams x 8
+    chunks, within 1e-4 of each stream's YoloEventTorch.scan (K3 counted,
+    its first call held as in 28); TimeShardEngine on a time mesh of 1
+    within 1e-4 of scan_parallel, its collectives and the NCCL all_gather
+    of a plane timed; StreamingPipeline(streams=8, mesh=...) for 12
+    dispatches of 64 chunks bit-equal to the meshless pipeline, events/s
+    and p50 of both; Trainer(mesh) one step at batch 16 bit-equal to
+    Trainer(mesh=None);
+31. ranks: 4 gloo ranks on the one card (NCCL takes one rank a card):
+    dryrun_multichip(4), every leg within 1e-5 of the unsharded path; the
+    full-width MultiStreamEngine.scan_parallel on a 4 x 1 mesh, 2 streams
+    a rank, gathered within 1e-4 of phase 30's one-process S=8 call, each
+    rank's K1 counted (one call) and that call, at the rank's own
+    [2, 64, ...] shapes, bit-equal to its plain version.
 
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's to K6's ``ms`` are their device time per call from
@@ -2482,8 +2510,10 @@ def cli_phases(dev, args, num_classes, smi):
     scan runner on configs/efcn_event_full.yml (K1 counted, its first call
     bit-equal to its plain version), the scan runner with --ts_window (the
     'events' engine ignores the window, in both packages: K1 again, K2 not
-    launched), and YoloFrameJax through the frame runner: each run's stats
-    line."""
+    launched), the multi-stream runner with --num_streams 2 in this process
+    (an NCCL world of 1; K1 counted, its first call bit-equal to its plain
+    version) and in a process started with torchrun's environment, and
+    YoloFrameJax through the frame runner: each run's stats line."""
     import tempfile
 
     from async_ev_cnn_torch.ops import rulebook_gemm as rg
@@ -2591,6 +2621,27 @@ def cli_phases(dev, args, num_classes, smi):
             k1_shape = check_k1_on_path(seen_k1, f"run_networks {what}")
             runs.append((what, stats, secs, f"launches {launches}, the first K1 call "
                          f"({k1_shape}) bit-equal to its plain version"))
+        # --num_streams 2: the world starts before the network is built
+        sc.reset_launches()
+        with k1_on_path() as seen_k1:
+            stats, _, secs = timed(run_networks.main, ["-c", full_cfg, *data, "--restore_net",
+                                                       resumed, "--num_streams", "2"])
+        launches = dict(sc.LAUNCHES)
+        require(stats["examples"] == CLI_EXAMPLES
+                and launches == scan_launches(streams=CLI_EXAMPLES // 2),
+                f"run_networks --num_streams 2: {stats}, launches {launches}")
+        k1_shape = check_k1_on_path(seen_k1, "run_networks --num_streams 2")
+        runs.append(("multi-stream runner, --num_streams 2, an NCCL world of 1", stats, secs,
+                     f"launches {launches}, the first K1 call ({k1_shape}) bit-equal to its "
+                     "plain version"))
+        stats, secs = rank_process(["-m", "async_ev_cnn_torch.scripts.run_networks", "-c",
+                                    full_cfg, *data, "--restore_net", resumed,
+                                    "--num_streams", "2", *on_dev])
+        require(stats["examples"] == CLI_EXAMPLES and stats["events_per_sec"] > 0,
+                f"run_networks --num_streams 2 under torchrun's environment: {stats}")
+        runs.append(("multi-stream runner, --num_streams 2, a process with torchrun's "
+                     "environment (env:// rendezvous, an NCCL world of 1)", stats, secs,
+                     "start-up included"))
         stats, _, secs = timed(run_networks.main, ["-c", cfg, *data, "--restore_net", resumed,
                                                    "--network", "YoloFrameJax"])
         require(stats["steps"] > 0 and stats["events_per_sec"] > 0,
@@ -2600,6 +2651,355 @@ def cli_phases(dev, args, num_classes, smi):
           + "; ".join(f"{what}: {json.dumps(stats)} in {secs:.2f} s, {note}"
                       for what, stats, secs, note in runs) + f"; card {smi!r}", flush=True)
     return evals, runs
+
+
+def rank_process(argv) -> tuple[dict, float]:
+    """``python argv`` in a process of its own with the environment that
+    ``torchrun --nproc_per_node 1`` gives its rank (the env:// rendezvous
+    on 127.0.0.1 at a free port); its last line as JSON and its wall s."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=HERE, env=env, capture_output=True,
+                          text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"{' '.join(argv)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), secs
+
+
+# ---- phases 30-31: the multi-device layer ------------------------------------
+
+MESH_STREAMS = 8
+MESH_CHUNKS = 64
+MESH_SEQ_STREAMS = 2
+MESH_SEQ_CHUNKS = 8
+MESH_RANKS = 4
+# the engines against the meshless paths where the same kernels run the same
+# work in another batching: the 1e-4 contract of the conv stack
+MESH_TOL = 1e-4
+
+
+def mesh_batches(dev, rng, s, t):
+    """``s`` synthetic feeds of ``t`` chunks as ``[T, S, E]`` chunks on
+    ``dev``."""
+    from async_ev_cnn_torch.layers.types import EventChunk
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    parts = [pack_chunks(synth_stream(rng, t, CAPACITY), CAPACITY, device=dev)
+             for _ in range(s)]
+    return EventChunk(*(torch.stack(f, dim=1) for f in zip(*parts)))
+
+
+def mesh_phase(dev, args, model, num_classes, num_bbox, smi):
+    """Phase 30: the one-card deployment, an NCCL world of 1 (a HashStore,
+    as without torchrun), at full width with the seeded weights at
+    'highest': MultiStreamEngine.scan_parallel on make_mesh(1, 1) for
+    MESH_STREAMS streams of MESH_CHUNKS chunks, outputs and end surfaces
+    bit-equal to the meshless scan_parallel on the same [S, T, E] (K1
+    counted: one launch pair, the window holds every chunk; its call
+    bit-equal to its plain version); MultiStreamEngine.scan in
+    'sparse_pallas' on MESH_SEQ_STREAMS clustered streams of
+    MESH_SEQ_CHUNKS chunks within MESH_TOL of each stream's own
+    YoloEventTorch.scan (K3 counted, its first call held as in phase 28);
+    TimeShardEngine on a time mesh of 1 within MESH_TOL of scan_parallel,
+    with its three collectives counted and the NCCL all_gather of a
+    C*H*W plane timed; StreamingPipeline(streams=8, mesh=...) for
+    SERVE_DISPATCHES dispatches of SERVE_CHUNKS chunks, results and end
+    state bit-equal to the meshless pipeline's, events/s and p50 of both
+    (K1 counted, its first call held); Trainer(mesh) one step at batch
+    TRAIN_BATCH bit-equal to Trainer(mesh=None).  Returns what phase 31
+    and the JSON line read."""
+    import torch.distributed as dist
+
+    from async_ev_cnn_torch.layers.network import EventNetwork
+    from async_ev_cnn_torch.layers.types import EventChunk
+    from async_ev_cnn_torch.models import head
+    from async_ev_cnn_torch.models.train import Trainer
+    from async_ev_cnn_torch.models.yolo import YoloEventTorch
+    from async_ev_cnn_torch.ops import rulebook_gemm as rg
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.parallel import (
+        MultiStreamEngine,
+        TimeShardEngine,
+        make_mesh,
+        make_time_mesh,
+        world,
+    )
+    from async_ev_cnn_torch.scripts.train import init_params
+    from async_ev_cnn_torch.utils.serving import StreamingPipeline
+    from async_ev_cnn_torch.utils.weights import params_from_jax
+
+    layer_defs = args.yolo_cnn_layers
+    s, t = MESH_STREAMS, MESH_CHUNKS
+    info = {}
+    t0 = time.perf_counter()
+    with world(dev):
+        mesh = make_mesh(1, 1, device=dev)
+        info["start_ms"] = (time.perf_counter() - t0) * 1e3
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                f"the one-card world is {dist.get_backend()} x {dist.get_world_size()}")
+
+        # -- MultiStreamEngine.scan_parallel against the meshless call
+        eng = MultiStreamEngine(model.net, mesh)
+        chunks = mesh_batches(torch.device("cpu"), np.random.RandomState(30), s, t)
+        params = eng.place_params(model.params)
+        states = eng.init_states(model.params, s)
+        local = eng.place_chunks(chunks, leading_time=True)
+
+        def sharded():
+            return eng.scan_parallel(params, states, local)
+
+        base = model.init_state()
+        st0 = tuple(type(x)(*(f.expand(s, *f.shape) for f in x)) for x in base)
+        ste = EventChunk(*(f.transpose(0, 1).contiguous().to(dev) for f in chunks))
+
+        def meshless():
+            return model.net.scan_parallel(model.params, st0, ste, window=256)
+
+        sharded()  # cuDNN set-up
+        sc.reset_launches()
+        torch.cuda.synchronize()
+        with k1_on_path() as seen:
+            st_m, out_m = sharded()
+        torch.cuda.synchronize()
+        launches = dict(sc.LAUNCHES)
+        require(launches == scan_launches(streams=1),
+                f"mesh scan_parallel launches {launches} for one window")
+        k1_shape = check_k1_on_path(seen, "mesh scan_parallel")
+        st_r, out_r = meshless()
+        require(bit_equal(out_m, out_r.transpose(0, 1))
+                and bit_equal(st_m[0].surface, st_r[0].surface),
+                "mesh scan_parallel differs from the meshless call")
+        n_ev = int(chunks.valid.sum())
+        info.update(scan_launches=launches, engine_ms=time_ms(sharded, 3, 3),
+                    meshless_ms=time_ms(meshless, 3, 3), chunks=chunks,
+                    outs=out_m.cpu())
+        rows = [f"MultiStreamEngine.scan_parallel S={s} T={t}: outputs and end surfaces "
+                f"bit-equal to the meshless scan_parallel, launches {launches}, the K1 call "
+                f"({k1_shape}) bit-equal to its plain version, {info['engine_ms']:.3f} ms "
+                f"({n_ev / info['engine_ms'] * 1e3:.0f} events/s) against "
+                f"{info['meshless_ms']:.3f} ms meshless"]
+
+        # -- MultiStreamEngine.scan in 'sparse_pallas' against per-stream scans
+        sp = YoloEventTorch(
+            args.frame_h, args.frame_w, num_classes, layer_defs, args.yolo_cnn_padding,
+            args.yolo_num_cells_h, args.yolo_num_cells_w, num_bbox, alpha=0.1,
+            leak=args.leak, conv_mode="sparse_pallas", capacity_frac=CAPACITY_FRAC,
+            device=dev)
+        sp.set_weights(make_params(layer_defs, np.random.RandomState(0)))
+        eng_sp = MultiStreamEngine(sp.net, mesh)
+        seq = [make_stream_chunks(np.random.RandomState(31 + i), MESH_SEQ_CHUNKS, dev)
+               for i in range(MESH_SEQ_STREAMS)]
+        seq_tse = EventChunk(*(torch.stack(f, dim=1) for f in zip(*seq)))
+        rg.reset_launches()
+        sc.reset_launches()
+        torch.cuda.synchronize()
+        with first_call(rg, "rulebook_gather_gemm_blocks") as seen_k3:
+            _, out_sp = eng_sp.scan(eng_sp.place_params(sp.params),
+                                    eng_sp.init_states(sp.params, MESH_SEQ_STREAMS), seq_tse)
+        torch.cuda.synchronize()
+        k3_launches = dict(rg.LAUNCHES)
+        require(k3_launches["rulebook_gather_gemm_blocks"] > 0,
+                f"mesh scan in 'sparse_pallas' launched no K3: {k3_launches}")
+        k3_err = check_k3_on_path(seen_k3, "mesh scan 'sparse_pallas'")
+        seq_err = max(float((out_sp[:, i] - sp.scan(sp.init_state(), part)[1]
+                             .reshape(out_sp[:, i].shape)).abs().max())
+                      for i, part in enumerate(seq))
+        require(seq_err <= MESH_TOL,
+                f"mesh scan 'sparse_pallas' {seq_err} from per-stream scans")
+        info["k3_launches"] = k3_launches["rulebook_gather_gemm_blocks"]
+        rows.append(f"MultiStreamEngine.scan 'sparse_pallas' {MESH_SEQ_STREAMS} streams x "
+                    f"{MESH_SEQ_CHUNKS} clustered chunks: within {seq_err:.3e} of per-stream "
+                    f"YoloEventTorch.scan, K3 launches {info['k3_launches']}, the first K3 "
+                    f"call within {k3_err:.2e} of its plain version")
+
+        # -- TimeShardEngine on a time mesh of 1 against scan_parallel
+        te = TimeShardEngine(model.net, make_time_mesh(1, device=dev))
+        one = EventChunk(*(f[:, 0].to(dev) for f in chunks))
+        te.time.calls.clear()
+        st_t, out_t = te.scan_parallel(model.params, base, one)
+        calls = sorted(te.time.calls.items())
+        st_p, out_p = model.net.scan_parallel(model.params, base, one)
+        ts_err = max(float((out_t - out_p).abs().max()),
+                     float((st_t[0].surface - st_p[0].surface).abs().max()))
+        require(ts_err <= MESH_TOL, f"time shard {ts_err} from scan_parallel")
+        plane = torch.zeros((1, 1, H, W), device=dev)
+        gather_ms = time_ms(lambda: te.time.all_gather(plane), 20)
+        info["allgather_ms"] = gather_ms
+        rows.append(f"TimeShardEngine (time mesh of 1) T={t}: within {ts_err:.3e} of "
+                    f"scan_parallel, collectives {calls}; NCCL all_gather of a 1x{H}x{W} "
+                    f"float32 plane {gather_ms:.4f} ms")
+
+        # -- the mesh pipeline against the meshless one
+        def post(outs):
+            boxes, _, probs = head.decode(outs, num_classes, num_bbox, H, W)
+            return boxes, probs
+
+        rng = np.random.RandomState(32)
+        feeds = [np.split(synth_stream(rng, SERVE_DISPATCHES * SERVE_CHUNKS, CAPACITY),
+                          SERVE_DISPATCHES) for _ in range(s)]
+        source = [feeds[i][k] for k in range(SERVE_DISPATCHES) for i in range(s)]
+        served, pipes = {}, {}
+        for what, kw in (("meshless", {}), ("mesh", {"mesh": mesh})):
+            pipe = StreamingPipeline(model.net, model.params, capacity=CAPACITY, streams=s,
+                                     t_chunks=SERVE_CHUNKS, postprocess=post,
+                                     max_in_flight=2, device=dev, **kw)
+            sc.reset_launches()
+            torch.cuda.synchronize()
+            with k1_on_path() as seen:
+                warm = list(pipe.serve(source[:s]))
+            t1 = time.perf_counter()
+            rest = list(pipe.serve(source[s:]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            got = pipe.gather_results(warm + rest)
+            launches = dict(sc.LAUNCHES)
+            require(launches == scan_launches(streams=SERVE_DISPATCHES),
+                    f"{what} pipeline launches {launches}")
+            check_k1_on_path(seen, f"{what} pipeline")
+            served[what], pipes[what] = got, pipe
+            info[what] = {"events_per_s": sum(r.n_events for r in rest) / wall,
+                          "p50_ms": pipe.latency_stats()["dispatch_latency_ms"]["p50"],
+                          "launches": launches}
+        require(len(served["mesh"]) == len(served["meshless"]) == SERVE_DISPATCHES,
+                "the mesh pipeline served another count of dispatches")
+        for a, b in zip(served["mesh"], served["meshless"]):
+            require(a.n_events == b.n_events and all(bit_equal(x, y) for x, y in
+                                                     zip(a.outputs, b.outputs)),
+                    "a mesh pipeline dispatch differs from the meshless one")
+        require(bit_equal(pipes["mesh"].state[0].surface, pipes["meshless"].state[0].surface),
+                "mesh pipeline end state differs")
+        rows.append(f"StreamingPipeline(streams={s}) {SERVE_DISPATCHES} dispatches of "
+                    f"{SERVE_CHUNKS} chunks, mesh against meshless: results and end state "
+                    "bit-equal; events/s over dispatches 2.. "
+                    f"{info['mesh']['events_per_s']:.0f} against "
+                    f"{info['meshless']['events_per_s']:.0f}, p50 "
+                    f"{info['mesh']['p50_ms']} against {info['meshless']['p50_ms']} ms, "
+                    f"launches {info['mesh']['launches']} each")
+
+        # -- Trainer(mesh) one step against the unsharded step
+        net = EventNetwork(layer_defs, H, W, leak=args.leak, alpha=0.1,
+                           padding=args.yolo_cnn_padding)
+        frames, targets = train_batches(dev, args, np.random.RandomState(33), 1)[0]
+        init = init_params(layer_defs)
+        steps = []
+        for m in (mesh, None):
+            trainer = Trainer(net, TRAIN_CLASSES, num_bbox,
+                              (args.yolo_num_cells_h, args.yolo_num_cells_w), mesh=m)
+            p = params_from_jax(init, dev)
+            p, _, loss = trainer.step(p, trainer.init(p), frames, targets)
+            steps.append((loss, p))
+        (loss_m, p_m), (loss_r, p_r) = steps
+        require(bit_equal(loss_m, loss_r) and all(bit_equal(p_m[k].detach(), p_r[k].detach())
+                                                  for k in p_r),
+                "Trainer(mesh) step differs from Trainer(mesh=None)")
+        rows.append(f"Trainer(mesh) one step at batch {TRAIN_BATCH}: loss {float(loss_m):.6f} "
+                    "and every parameter bit-equal to Trainer(mesh=None)")
+    require(not dist.is_initialized(), "the one-card world outlived its phase")
+    print(f"mesh: an NCCL world of 1 on the card (started in {info['start_ms']:.1f} ms), "
+          f"eFCN {H}x{W} at 'highest': " + "; ".join(rows) + f"; card {smi!r}", flush=True)
+    return info
+
+
+def make_stream_chunks(rng, t, dev):
+    """``t`` chunks of a clustered stream (phase 8's) on ``dev``."""
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    return pack_chunks(clustered_stream(rng, t, CAPACITY), CAPACITY, device=dev)
+
+
+def mesh_rank(chunks, cfg, device):
+    """One rank of phase 31: the network of config ``cfg`` with the seeded
+    weights on ``device``, MultiStreamEngine.scan_parallel over a
+    world-sized data axis on the global ``[T, S, E]`` chunks (numpy
+    planes), once to set cuDNN up, once counted (its K1 call held
+    bit-equal to its plain version on the same inputs) and once timed (to
+    its outputs on the host); returns the rank's K1 counts and
+    call's shape, its wall ms and (rank 0) the gathered outputs."""
+    import torch.distributed as dist
+
+    from async_ev_cnn_torch.layers.types import EventChunk
+    from async_ev_cnn_torch.models.yolo import YoloEventTorch
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.parallel import MultiStreamEngine, make_mesh
+    from async_ev_cnn_torch.parallel.mesh import mesh_device
+    from async_ev_cnn_torch.utils.config import config
+
+    args = config(["-c", cfg])
+    layer_defs = args.yolo_cnn_layers
+    num_bbox = args.yolo_num_bbox
+    num_classes = list(layer_defs.values())[-1][3] - num_bbox * 5
+    mesh = make_mesh(dist.get_world_size(), 1, device=device)
+    model = YoloEventTorch(
+        args.frame_h, args.frame_w, num_classes, layer_defs, args.yolo_cnn_padding,
+        args.yolo_num_cells_h, args.yolo_num_cells_w, num_bbox, alpha=0.1,
+        leak=args.leak, conv_mode="full", device=mesh_device(mesh))
+    model.set_weights(make_params(layer_defs, np.random.RandomState(0)))
+    eng = MultiStreamEngine(model.net, mesh)
+    chunks = EventChunk(*(torch.from_numpy(a) for a in chunks))
+    params = eng.place_params(model.params)
+    states = eng.init_states(model.params, chunks.y.shape[1])
+    local = eng.place_chunks(chunks, leading_time=True)
+    eng.scan_parallel(params, states, local)[1].cpu()  # cuDNN set-up
+    sc.reset_launches()
+    with k1_on_path() as seen:
+        _, outs = eng.scan_parallel(params, states, local)
+        outs = outs.cpu()
+    launches = dict(sc.LAUNCHES)
+    k1_shape = check_k1_on_path(seen, f"rank {dist.get_rank()}'s scan_parallel")
+    t0 = time.perf_counter()
+    eng.scan_parallel(params, states, local)[1].cpu()  # waits for the card
+    ms = (time.perf_counter() - t0) * 1e3
+    outs = eng.gather(outs)  # gloo: through the host
+    return {"launches": launches, "k1_shape": k1_shape, "ms": ms, "staged": eng.data.staged,
+            "outs": outs.cpu().numpy() if dist.get_rank() == 0 else None}
+
+
+def ranks_phase(mesh_info, smi, cfg=str(HERE / "configs" / "efcn_event.yml"),
+                device="cuda"):
+    """Phase 31: MESH_RANKS gloo ranks on the one card (NCCL takes one
+    rank a card): the port's dry run (every leg within 1e-5 of the
+    unsharded path), then the full-width MultiStreamEngine.scan_parallel on
+    a MESH_RANKS x 1 mesh, MESH_STREAMS / MESH_RANKS streams a rank, its
+    gathered outputs within MESH_TOL of phase 30's one-process call, each
+    rank's K1 counted (one call) and held bit-equal to its plain version in
+    the rank."""
+    from async_ev_cnn_torch.parallel.dryrun import dryrun_multichip
+    from async_ev_cnn_torch.parallel.launch import launch
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        dry = dryrun_multichip(MESH_RANKS, device)
+    chunks = tuple(f.numpy() for f in mesh_info["chunks"])
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, MESH_RANKS, args=(chunks, cfg, device), backend="gloo",
+                   timeout=600)
+    wall = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        require(got["launches"] == scan_launches(streams=1)
+                and got["staged"] == (device == "cuda"),
+                f"rank {r}: launches {got['launches']}, staged {got['staged']}")
+    err = float(np.abs(ranks[0]["outs"] - mesh_info["outs"].numpy()).max())
+    require(err <= MESH_TOL, f"{MESH_RANKS} ranks' outputs {err} from the one-process call")
+    rank_ms = ", ".join(f"{g['ms']:.1f}" for g in ranks)
+    print(f"ranks: {MESH_RANKS} gloo ranks on {device} (collectives through the host); "
+          f"dryrun_multichip({MESH_RANKS}) "
+          + ", ".join(f"leg {k} {v:.3e}" for k, v in dry["errors"].items())
+          + f" in {dry['seconds']:.1f} s; MultiStreamEngine.scan_parallel on a "
+          f"{MESH_RANKS}x1 mesh, {MESH_STREAMS // MESH_RANKS} streams a rank x "
+          f"{MESH_CHUNKS} chunks: gathered outputs within {err:.3e} of phase 30's "
+          f"one-process S={MESH_STREAMS} call, K1 launches a rank "
+          f"{[g['launches']['surface_scan_events_streams'] for g in ranks]}, each "
+          f"rank's K1 call ({ranks[0]['k1_shape']}) bit-equal to its plain version, a "
+          "rank's call "
+          f"{rank_ms} ms (spawn to results {wall:.1f} s); card {smi!r}", flush=True)
+    return {"dry": dry, "err": err, "launches": [g["launches"] for g in ranks]}
 
 
 def main() -> int:
@@ -2900,6 +3300,11 @@ def main() -> int:
     data_plane_phase(dev, native_lib, smi)
     trainer_phase(dev, args, smi)
     cli_phases(dev, args, num_classes, smi)
+    mesh = mesh_phase(dev, args, model, num_classes, num_bbox, smi)
+    ranks_phase(mesh, smi)
+    # the mesh paths' launches (phase 30): K1 on the engine's scan_parallel
+    # and the mesh pipeline, K3 on the engine's 'sparse_pallas' scan
+    rulebook_kernels[0]["mesh_launches"] = mesh["k3_launches"]
 
     scans = [
         {"name": "surface_scan_events", "replaces": "async_ev_cnn_tpu/ops/pallas_scan.py:273",
@@ -2928,7 +3333,10 @@ def main() -> int:
         "max_abs_err": k1s["max_abs_err"], "ms": k1s["ms"], "plain_ms": k1s["plain_ms"],
         "bound_ms": k1s["bound"][0], "bound_by": k1s["bound"][1], "library_ms": None,
         "streams": k1s["streams"], "singles_ms": k1s["singles_ms"],
-        "call_ms": k1s["call_ms"], "singles_call_ms": k1s["singles_call_ms"]})
+        "call_ms": k1s["call_ms"], "singles_call_ms": k1s["singles_call_ms"],
+        "mesh_launches": {
+            "engine_scan_parallel": mesh["scan_launches"]["surface_scan_events_streams"],
+            "mesh_pipeline": mesh["mesh"]["launches"]["surface_scan_events_streams"]}})
     print(json.dumps({"kernels": kernels + rulebook_kernels + [stem_kernel, gather_copy]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -308,7 +308,7 @@ def test_runner_helpers_match_jax(rng):
 def test_runners_on_a_detection_tree(tmp_path, rng, numpy_codecs):
     """EventRunner, FrameRunner and ScanEventRunner drive the port's models
     over a detection tree on the CPU, every micro-batch (or example) a
-    timed step; the multi-device runner waits for its slice."""
+    timed step, and MultiStreamRunner two examples at once."""
     from collections import OrderedDict
     from types import SimpleNamespace
 
@@ -338,8 +338,15 @@ def test_runners_on_a_detection_tree(tmp_path, rng, numpy_codecs):
         assert stats["events_per_sec"] > 0
         assert stats.get("steps", stats.get("examples")) == (
             2 if runner_cls is trun.ScanEventRunner else 6)  # 40 events: 3 x 16 each
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        trun.MultiStreamRunner(args, tdet.factory(root), device="cpu").run(None)
+    # the multi-stream runner over a world of 1 (started and ended by run)
+    model = YoloEventTorch(**kw, conv_mode="full")
+    model.set_weights(params)
+    args.num_streams, args.window_budget_mb = 2, None
+    runner = trun.MultiStreamRunner(args, tdet.factory(root, file_format="n-data"),
+                                    device="cpu")
+    stats = runner.run(model, max_examples=1, verbose=False)
+    assert stats["examples"] == 2 and stats["events_per_sec"] > 0
+    assert not torch.distributed.is_initialized()
 
 
 def test_prefetch(tmp_path, rng, monkeypatch, numpy_codecs):

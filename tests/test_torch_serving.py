@@ -314,9 +314,12 @@ def test_pipeline_bookkeeping(rng):
 
 
 def test_pipeline_slice_limits(rng, tmp_path):
-    """Of the JAX engine's options the port refuses only mesh serving; every
-    wire tier and streams > 1 are taken ('auto' is the default, as there),
-    and bad values raise as there."""
+    """The JAX engine's options: every wire tier, streams > 1 and a mesh are
+    taken ('auto' is the default, as there), and bad values raise as there
+    (a mesh with fewer than 2 streams among them; tests/
+    test_torch_parallel_serving.py serves on a 2 x 2 mesh)."""
+    from async_ev_cnn_torch.parallel import make_mesh, world
+
     tn, _ = _nets()
     params = params_from_jax(_params(DSL, rng), "cpu")
     for kw in (dict(), dict(wire="ultra4"), dict(wire="ultra"), dict(wire="compact"),
@@ -327,11 +330,16 @@ def test_pipeline_slice_limits(rng, tmp_path):
         assert pipe.state[0].surface.shape == ((streams,) if streams > 1 else ()) + (1, H, W)
     for kw, exc, match in ((dict(wire="gzip"), ValueError, "wire must be"),
                            (dict(streams=0), ValueError, "streams"),
-                           (dict(mesh=object()), NotImplementedError, "mesh"),
                            (dict(max_in_flight=0), ValueError, "max_in_flight"),
                            (dict(keep_polarity=True), ValueError, "2-channel")):
         with pytest.raises(exc, match=match):
             tserving.StreamingPipeline(tn, params, device="cpu", **kw)
+    with world("cpu"):
+        mesh = make_mesh(1, 1, device="cpu")
+        with pytest.raises(ValueError, match="mesh serving needs streams"):
+            tserving.StreamingPipeline(tn, params, mesh=mesh)
+        pipe = tserving.StreamingPipeline(tn, params, streams=2, mesh=mesh)
+        assert pipe.device.type == "cpu" and pipe.state[0].surface.shape == (2, 1, H, W)
     model_kw = dict(h_frame=H, w_frame=W, num_classes=2, cnn_layers=layers_dict(DSL),
                     cnn_padding="SAME", h_cells=4, w_cells=4, num_bbox=2, alpha=0.1,
                     leak=1e-4, device="cpu")

@@ -358,9 +358,30 @@ def test_port_resume_is_bit_for_bit(tmp_path, rng):
 
 
 def test_trainer_refuses_a_mesh():
+    """A mesh without a 'data' axis is refused; on a 1 x 1 mesh (a world
+    of 1, gloo on the CPU) a step is the unsharded step bit for bit (tests/
+    test_torch_parallel.py holds the data-parallel step on 4 ranks)."""
+    from async_ev_cnn_torch.parallel import make_mesh, make_time_mesh, world
+
     _, tt = trainers(layers_dict(CONV_LAYERS))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ttrain.Trainer(tt.net, NUM_CLASSES, NUM_BBOX, (SH, SW), mesh=object())
+    rng = np.random.RandomState(3)
+    frames = torch.from_numpy(rng.rand(4, H, W).astype(np.float32))
+    targets = ttrain.YoloTargets(torch.rand(4, SH, SW, 4), torch.ones(4, SH, SW),
+                                 torch.zeros(4, SH, SW, dtype=torch.int64))
+    with world("cpu"):
+        with pytest.raises(ValueError, match="needs a 'data' axis"):
+            ttrain.Trainer(tt.net, NUM_CLASSES, NUM_BBOX, (SH, SW),
+                           mesh=make_time_mesh(device="cpu"))
+        mesh = make_mesh(1, 1, device="cpu")
+        runs = []
+        for m in (mesh, None):
+            trainer = ttrain.Trainer(tt.net, NUM_CLASSES, NUM_BBOX, (SH, SW), mesh=m)
+            params = params_from_jax(make_params(np.random.RandomState(4),
+                                                 layers_dict(CONV_LAYERS), 0.1), "cpu")
+            params, _, loss = trainer.step(params, trainer.init(params), frames, targets)
+            runs.append((loss, params))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[1][1])
 
 
 def test_tree_leaves_walk_dicts_in_sorted_key_order(tmp_path):

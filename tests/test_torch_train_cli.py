@@ -531,17 +531,19 @@ def test_run_networks_polarity_channels(tmp_path, tiny_detection_root, rng):
 
 
 def test_run_networks_refusals(tmp_path, tiny_detection_root, tiny_ckpt):
-    """The JAX CLI's refusals, and --num_streams > 1, which waits for the
-    multi-device slice."""
+    """The JAX CLI's refusals, those of --num_streams > 1 among them, and
+    --num_ranks without --num_streams > 1."""
     cfg = _write_cfg(tmp_path, tiny_detection_root, "YoloEventJax", tiny_ckpt)
     for argv in (["--runner", "warp"], ["--runner", "scan", "--batch_size", "2"],
                  ["--runner", "scan", "--network", "YoloFrameJax"],
-                 ["--network", "YoloEventTf"]):
+                 ["--network", "YoloEventTf"],
+                 ["--num_streams", "2", "--network", "YoloFrameJax"],
+                 ["--num_streams", "2", "--ts_window", "8"]):
         for main, extra in ((jrun.main, []), (trun.main, CPU)):
             with pytest.raises(SystemExit):
                 _quiet(main, ["-c", str(cfg)] + argv + extra)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        trun.main(["-c", str(cfg), "--num_streams", "2"] + CPU)
+    with pytest.raises(SystemExit, match="--num_ranks takes --num_streams > 1"):
+        trun.main(["-c", str(cfg), "--num_ranks", "2"] + CPU)
     with pytest.raises(SystemExit, match="no network layers"):
         trun.main(["--input_data_dir", str(tiny_detection_root)] + CPU)
 
