@@ -159,5 +159,9 @@ def leaky_mask(surface: torch.Tensor, alpha: float) -> torch.Tensor:
 def leaky(x: torch.Tensor, alpha: float) -> torch.Tensor:
     """Leaky-ReLU activation ``max(x, x * alpha)`` (alpha rounded to
     float32, as ``x * jnp.float32(alpha)`` is; a 0-dim CPU tensor acts as a
-    scalar beside a tensor on the card)."""
-    return torch.maximum(x, x * float32_scalar(alpha, "cpu"))
+    scalar beside a tensor on the card).  The maximum goes into the
+    buffer of ``x * alpha``, so a call holds two maps of ``x``'s size, not
+    three (the window memory model counts on it); under autograd (the
+    trainer) it stays out of place."""
+    y = x * float32_scalar(alpha, "cpu")
+    return torch.maximum(x, y) if y.requires_grad else torch.maximum(x, y, out=y)

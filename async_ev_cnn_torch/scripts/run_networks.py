@@ -18,8 +18,9 @@ to ``./torch_trace``.  ``--num_streams S`` (S > 1) serves S examples at
 once through :class:`~async_ev_cnn_torch.utils.runner.MultiStreamRunner`:
 in one process a world of 1 (every stream on the stream axis of one
 device); under ``torchrun`` its ranks, or with ``--num_ranks N`` N ranks
-that this command starts on the host (``parallel/launch.py``; NCCL on the
-card, which takes one rank a card, gloo with ``--device cpu``):
+that this command starts on the host (``parallel/launch.py``, with no
+deadline; NCCL on the card, rank ``r`` on card ``r``, so ``N`` may not
+exceed the cards present; gloo with ``--device cpu``):
 
     torchrun --nproc_per_node 4 -m async_ev_cnn_torch.scripts.run_networks -c CFG --num_streams 8
     python -m async_ev_cnn_torch.scripts.run_networks -c CFG --num_streams 4 --num_ranks 2 --device cpu
@@ -162,8 +163,11 @@ def _serve_streams(args, dev_args, argv, reader, build, device):
         from async_ev_cnn_torch.parallel.launch import launch
 
         rank_argv = list(argv) + (["--device", dev_args.device] if dev_args.device else [])
+        # no deadline: the streams run to their end, as in the JAX CLI; on
+        # cuda launch refuses more NCCL ranks than cards before any starts
         stats = launch(_rank_main, dev_args.num_ranks, args=(rank_argv,),
-                       backend="nccl" if device.type == "cuda" else "gloo")[0]
+                       backend="nccl" if device.type == "cuda" else "gloo",
+                       timeout=None)[0]
         print(json.dumps(stats))
         return stats
     with world(device) as rank_device:

@@ -8,11 +8,17 @@ read from
 * ``.npz`` archives (written by :func:`save_params`, with or without the
   extension), or
 * TensorFlow v2 checkpoints (TensorBundle), by the pure-Python reader in
-  :mod:`async_ev_cnn_torch.utils.tf_bundle`.
+  :mod:`async_ev_cnn_torch.utils.tf_bundle`, or
+* Orbax checkpoint directories (the JAX ecosystem's format, written by the
+  JAX package's ``save_params_orbax`` or by :func:`save_params_orbax`),
+  read and written through ``tensorstore`` alone: one zarr array per
+  weight on an OCDBT key-value store, named by the directory's
+  ``_METADATA``.  Neither orbax nor jax is imported.  Without tensorstore
+  the Orbax functions raise :class:`NotImplementedError`.
 
 Weights load as numpy arrays in the checkpoint convention;
 ``utils/weights.params_from_jax`` puts them on a device in the port's
-layout.  Orbax directories are the JAX ecosystem's format and are refused.
+layout.
 
 The stream state (:func:`save_stream_state`) is stored as the JAX package
 stores it, one ``leaf_<i>`` array per leaf in ``jax.tree.leaves`` order, so
@@ -24,8 +30,11 @@ trainer's optimizer state (``models/train.py``).
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 import tempfile
+import time
 from collections import OrderedDict
 from typing import Dict
 
@@ -100,15 +109,17 @@ def _is_npz(path: str) -> bool:
 
 
 def load_params(path: str, restrict_vars=None) -> Dict[str, np.ndarray]:
-    """Load a weight dict from an .npz file or a TF checkpoint (file
-    prefix or directory).  ``restrict_vars`` keeps only the names it holds,
-    matching object-graph names (``name/.ATTRIBUTES/VARIABLE_VALUE``) by
-    their flat name too."""
+    """Load a weight dict from an .npz file, a TF checkpoint (file prefix
+    or directory) or an Orbax checkpoint directory (one holding
+    ``_METADATA`` or ``_CHECKPOINT_METADATA``; needs tensorstore).
+    ``restrict_vars`` keeps only the names it holds, matching TF
+    object-graph names (``name/.ATTRIBUTES/VARIABLE_VALUE``) by their flat
+    name too."""
     if _is_orbax(path):
-        raise NotImplementedError(
-            f"{path} is an Orbax checkpoint directory; Orbax is JAX-only. "
-            "Export the weights with the JAX package's save_params (.npz) or "
-            "save_params_tf (TF bundle) and load that")
+        params = load_params_orbax(path)
+        if restrict_vars is not None:
+            params = {k: v for k, v in params.items() if k in restrict_vars}
+        return params
     path = latest_checkpoint(path)
     if _is_npz(path):
         with np.load(path) as z:
@@ -159,6 +170,117 @@ def save_params_tf(prefix: str, params: Dict[str, np.ndarray]) -> None:
     from async_ev_cnn_torch.utils.tf_bundle import save_tensor_bundle
 
     save_tensor_bundle(prefix, _checkpoint_arrays(params))
+
+
+# ---- Orbax directories -------------------------------------------------------
+
+#: the OCDBT store's configuration as Orbax writes it
+_OCDBT_CONFIG = {"compression": {"id": "zstd"}, "max_inline_value_bytes": 1024,
+                 "max_decoded_node_bytes": 100000000, "version_tree_arity_log2": 4}
+#: the handler ``_CHECKPOINT_METADATA`` names, Orbax's StandardCheckpointer's
+_ORBAX_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                  "StandardCheckpointHandler")
+
+
+def _tensorstore():
+    """The ``tensorstore`` module, or :class:`NotImplementedError` naming it."""
+    try:
+        import tensorstore
+    except ImportError as err:
+        raise NotImplementedError(
+            "Orbax checkpoints need the tensorstore package, which is not "
+            "installed; export the weights as .npz (save_params) or as a TF "
+            "bundle (save_params_tf) and load that") from err
+    return tensorstore
+
+
+def _orbax_kvstore(directory: str, use_ocdbt: bool) -> dict:
+    base = {"driver": "file", "path": directory + os.sep}
+    return {"driver": "ocdbt", "base": base} if use_ocdbt else base
+
+
+def load_params_orbax(directory: str) -> Dict[str, np.ndarray]:
+    """Load a weight dict from an Orbax checkpoint directory: each key of
+    ``_METADATA``'s ``tree_metadata`` as the array stored under it, with
+    its own dtype and shape (0-d included), as the JAX package's
+    ``load_params_orbax`` returns them.  Only flat dicts are read (the
+    trees ``save_params_orbax`` writes); a nested tree raises
+    :class:`ValueError`."""
+    ts = _tensorstore()
+    directory = os.path.abspath(directory)
+    with open(os.path.join(directory, "_METADATA")) as f:
+        meta = json.load(f)
+    driver = "zarr3" if meta.get("use_zarr3", False) else "zarr"
+    kvstore = _orbax_kvstore(directory, meta.get("use_ocdbt", True))
+    context = ts.Context()
+    params = {}
+    for entry in meta["tree_metadata"].values():
+        path = entry["key_metadata"]
+        if len(path) != 1:
+            raise ValueError(
+                f"{directory} holds a nested tree (key path "
+                f"{[p['key'] for p in path]}); only flat weight dicts load")
+        key = str(path[0]["key"])
+        store = ts.open({"driver": driver, "kvstore": kvstore, "path": key},
+                        read=True, context=context).result()
+        params[key] = np.asarray(store.read().result())
+    return params
+
+
+def save_params_orbax(directory: str, params: Dict[str, np.ndarray]) -> None:
+    """Save checkpoint-convention weights as an Orbax checkpoint directory,
+    readable by the JAX package's ``load_params_orbax`` and ``load_params``:
+    one zarr array per key on an OCDBT store, then ``_METADATA`` and
+    ``_CHECKPOINT_METADATA`` in the layout Orbax's StandardCheckpointer
+    leaves.  The write is atomic: the directory is built in a temporary
+    sibling and swapped in, replacing an existing one (Orbax's
+    ``force=True``)."""
+    ts = _tensorstore()
+    arrays = _checkpoint_arrays(params)
+    final = os.path.abspath(directory)
+    parent, name = os.path.split(final)
+    os.makedirs(parent, exist_ok=True)
+    started = time.time_ns()
+    tmp = tempfile.mkdtemp(dir=parent, prefix=f".{name}.", suffix=".tmp")
+    old = None
+    try:
+        kvstore = dict(_orbax_kvstore(tmp, True), config=_OCDBT_CONFIG)
+        context = ts.Context()
+        for key, a in arrays.items():
+            store = ts.open({
+                "driver": "zarr", "kvstore": kvstore, "path": key,
+                "metadata": {"shape": list(a.shape), "chunks": list(a.shape),
+                             "dtype": a.dtype.str, "fill_value": None,
+                             "compressor": {"id": "zstd", "level": 1}},
+            }, create=True, context=context).result()
+            store.write(a).result()
+        tree = {str((key,)): {"key_metadata": [{"key": key, "key_type": 2}],
+                              "value_metadata": {"value_type": "np.ndarray",
+                                                 "skip_deserialize": False}}
+                for key in sorted(arrays)}
+        with open(os.path.join(tmp, "_METADATA"), "w") as f:
+            json.dump({"tree_metadata": tree, "use_ocdbt": True, "use_zarr3": False,
+                       "store_array_data_equal_to_fill_value": True,
+                       "custom_metadata": None}, f)
+        with open(os.path.join(tmp, "_CHECKPOINT_METADATA"), "w") as f:
+            json.dump({"item_handlers": _ORBAX_HANDLER, "metrics": {},
+                       "performance_metrics": {}, "init_timestamp_nsecs": started,
+                       "commit_timestamp_nsecs": time.time_ns(),
+                       "custom_metadata": {}}, f)
+        if os.path.lexists(final):
+            # os.replace cannot overwrite a non-empty directory: move the
+            # old one aside, swap the new one in, then remove the old
+            old = tempfile.mkdtemp(dir=parent, prefix=f".{name}.", suffix=".old")
+            os.replace(final, os.path.join(old, name))
+        os.replace(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if old is not None and not os.path.lexists(final):
+            os.replace(os.path.join(old, name), final)  # put the old one back
+        raise
+    finally:
+        if old is not None:
+            shutil.rmtree(old, ignore_errors=True)
 
 
 # ---- stream state ------------------------------------------------------------

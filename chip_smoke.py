@@ -6,9 +6,12 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --compare PARENT`` instead times K2 and K6 (device
-time, and K6's SASS count) and phase 4's path (events/s of three runs of
-15 timed dispatches) of the checkout at PARENT against this one's on one
-card, in the order parent, this, this, parent.
+time, and K6's SASS count), phase 4's path (events/s of three runs of
+15 timed dispatches) and the eFCN's scan_parallel unwindowed and with
+window budgets of 256 and 1024 MB (ms a call, window, peak) of the
+checkout at PARENT against this one's on one card, in the order parent,
+this, this, parent.  On a machine with two
+cards or more phase 33 runs its NCCL branch.
 
 Phases, one line each on standard output:
 
@@ -234,6 +237,30 @@ device over torch.distributed:
     a rank, gathered within 1e-4 of phase 30's one-process S=8 call, each
     rank's K1 counted (one call) and that call, at the rank's own
     [2, 64, ...] shapes, bit-equal to its plain version.
+
+Then Orbax checkpoints, the ranks CLI and the window memory model:
+
+32. orbax: with tensorstore, the seeded weights written by
+    save_params_orbax and read by load_params bit-equal (both timed), and
+    16 dispatches of phase 4's stream served from
+    YoloEventTorch(checkpoint=orbax_dir) bit-equal to the .npz-loaded
+    model's (K1 counted, its first call bit-equal to its plain version);
+    without tensorstore, load_params on an Orbax directory raises the
+    NotImplementedError that names it ("tensorstore absent, refused");
+33. ranks CLI: run_networks --num_streams 2 --num_ranks 2 on
+    configs/efcn_event_full.yml over 8 examples: with one card, refused on
+    cuda before any rank starts (the error names --device cpu) and run to
+    its end with --device cpu on two gloo ranks; with two cards or more,
+    two NCCL ranks a card each (rank 0's stats), and the rank side again
+    with K1 counted and held bit-equal to its plain version in each rank;
+34. memory model: EventNetwork.scan_parallel's peak on the card
+    (max_memory_allocated above the bytes before the call, with and
+    without its outputs) against parallel_live_bytes_per_chunk at
+    tests/test_memory_model.py's three geometries and the eFCN (T=200):
+    2 * model * T covers the peak without outputs, model * T is at most
+    30 times it, and auto_window(200, B) keeps the eFCN's windowed call
+    within B MB at B = 256 and 1024 (grids within 1e-4, end surface
+    bit-equal).
 
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's to K6's ``ms`` are their device time per call from
@@ -3002,6 +3029,284 @@ def ranks_phase(mesh_info, smi, cfg=str(HERE / "configs" / "efcn_event.yml"),
     return {"dry": dry, "err": err, "launches": [g["launches"] for g in ranks]}
 
 
+# ---- phases 32-33: Orbax checkpoints and the ranks CLI -------------------------
+
+RANKS_CLI = 2
+
+
+def orbax_phase(model, kwargs, items, smi):
+    """Phase 32: with tensorstore, the seeded eFCN weights written by the
+    port's save_params_orbax and read back by load_params bit-equal (both
+    timed); then DISPATCHES dispatches of phase 4's stream served by
+    StreamingPipeline from ``YoloEventTorch(checkpoint=orbax_dir)`` (K1
+    counted, its first call bit-equal to its plain version), bit-equal to
+    the same dispatches from the .npz-loaded model.  Without tensorstore,
+    load_params on a directory holding ``_METADATA`` must raise the
+    NotImplementedError that names it (a reported fact, not a caught
+    failure)."""
+    import tempfile
+
+    from async_ev_cnn_torch.models.yolo import YoloEventTorch
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.utils.checkpoint import load_params, save_params, save_params_orbax
+    from async_ev_cnn_torch.utils.serving import StreamingPipeline
+
+    try:
+        import tensorstore  # noqa: F401
+    except ImportError:
+        with tempfile.TemporaryDirectory() as tmp:
+            (Path(tmp) / "_METADATA").write_text("{}")
+            try:
+                load_params(tmp)
+            except NotImplementedError as err:
+                require("tensorstore" in str(err), f"the Orbax refusal names no package: {err}")
+            else:
+                require(False, "an Orbax directory loaded without tensorstore")
+        print(f"orbax: tensorstore absent, refused; card {smi!r}", flush=True)
+        return None
+    weights = make_params(kwargs["cnn_layers"], np.random.RandomState(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        orbax_dir, npz = str(Path(tmp) / "efcn_orbax"), str(Path(tmp) / "efcn.npz")
+        t0 = time.perf_counter()
+        save_params_orbax(orbax_dir, weights)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded = load_params(orbax_dir)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        require(sorted(loaded) == sorted(weights) and all(
+            loaded[k].dtype == v.dtype and loaded[k].shape == v.shape
+            and np.array_equal(loaded[k].view(np.int32), v.view(np.int32))
+            for k, v in weights.items()), "the Orbax round trip changed the weights")
+        save_params(npz, weights)
+        models = {fmt: YoloEventTorch(**kwargs, conv_mode="full", checkpoint=path)
+                  for fmt, path in (("orbax", orbax_dir), ("npz", npz))}
+    served, launches = {}, {}
+    for fmt, m in models.items():
+        pipe = StreamingPipeline(m.net, m.params, capacity=CAPACITY, t_chunks=T_CHUNKS,
+                                 wire="plain", max_in_flight=2, device=model.device)
+        sc.reset_launches()
+        with k1_on_path() as seen:
+            served[fmt] = [r.outputs for r in pipe.serve(items[:DISPATCHES])]
+            torch.cuda.synchronize()
+        launches[fmt] = dict(sc.LAUNCHES)
+        k1_shape = check_k1_on_path(seen, f"the {fmt}-loaded pipeline")
+        require(launches[fmt] == scan_launches(events=DISPATCHES),
+                f"the {fmt}-loaded pipeline launched {launches[fmt]} on {DISPATCHES} dispatches")
+    require(all(bit_equal(a, b) for a, b in zip(served["orbax"], served["npz"])),
+            "the Orbax-loaded model serves other grids than the .npz-loaded one")
+    print(f"orbax: seeded eFCN weights ({sum(v.nbytes for v in weights.values())} bytes) "
+          f"written by save_params_orbax (tensorstore, zarr on OCDBT) in {save_ms:.1f} ms, "
+          f"read by load_params in {load_ms:.1f} ms, bit-equal; {DISPATCHES} dispatches of "
+          f"phase 4's stream from YoloEventTorch(checkpoint=orbax_dir) bit-equal to the "
+          f".npz-loaded model's, launches {launches['orbax']}, the first K1 call ({k1_shape}) "
+          f"bit-equal to its plain version; card {smi!r}", flush=True)
+    return {"save_ms": save_ms, "load_ms": load_ms}
+
+
+def cli_rank(argv):
+    """One NCCL rank of phase 33 (two cards or more): the rank side of
+    ``run_networks --num_ranks`` (``run_networks._rank_main``) with K1
+    counted and its first call held bit-equal to its plain version in the
+    rank; the rank's stats, K1 counts and card."""
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.scripts import run_networks
+
+    sc.reset_launches()
+    with k1_on_path() as seen:
+        stats = run_networks._rank_main(argv)
+    launches = dict(sc.LAUNCHES)
+    shape = check_k1_on_path(seen, "a rank of run_networks --num_ranks")
+    return {"stats": stats, "launches": launches, "k1_shape": shape,
+            "card": torch.cuda.current_device()}
+
+
+def ranks_cli_phase(dev, smi):
+    """Phase 33: ``run_networks --num_streams 2 --num_ranks 2`` on
+    configs/efcn_event_full.yml over phase 25's tree writer (CLI_EXAMPLES
+    test examples) with seeded weights.  With one card: on cuda it is
+    refused before any rank starts (the error names --device cpu), and
+    with --device cpu it finishes on two gloo ranks.  With two cards or
+    more: two NCCL ranks, a card each, through the CLI (rank 0's stats),
+    then the same rank side launched here with K1 counted and held in
+    each rank.  Wall times printed."""
+    import tempfile
+
+    from async_ev_cnn_torch.parallel import launch as launch_mod
+    from async_ev_cnn_torch.scripts import run_networks
+    from async_ev_cnn_torch.utils.checkpoint import save_params
+    from async_ev_cnn_torch.utils.config import config
+
+    full_cfg = str(HERE / "configs" / "efcn_event_full.yml")
+    args = config(["-c", full_cfg])
+    layer_defs = args.yolo_cnn_layers
+    num_classes = list(layer_defs.values())[-1][3] - args.yolo_num_bbox * 5
+    cards = torch.cuda.device_count()
+
+    def run(argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            stats = run_networks.main(argv)
+        secs = time.perf_counter() - t0
+        require(json.loads(out.getvalue().strip().splitlines()[-1]) == stats
+                and stats["examples"] == CLI_EXAMPLES and stats["events_per_sec"] > 0,
+                f"run_networks {' '.join(argv[-4:])}: {stats}")
+        return stats, secs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tree, weights = Path(tmp) / "tree", str(Path(tmp) / "efcn.npz")
+        write_detection_tree(tree, np.random.RandomState(33), num_classes, args)
+        save_params(weights, make_params(layer_defs, np.random.RandomState(0)))
+        argv = ["-c", full_cfg, "--input_data_dir", str(tree), "--restore_net", weights,
+                "--num_streams", "2", "--num_ranks", str(RANKS_CLI)]
+        rows = []
+        if cards < RANKS_CLI:
+            spawned = []
+            real = launch_mod.mp.start_processes
+            launch_mod.mp.start_processes = lambda *a, **k: spawned.append(a) or real(*a, **k)
+            t0 = time.perf_counter()
+            try:
+                run_networks.main(argv)
+            except ValueError as err:
+                refusal = str(err)
+            else:
+                refusal = None
+            finally:
+                launch_mod.mp.start_processes = real
+            refused_s = time.perf_counter() - t0
+            require(refusal is not None and "--device cpu" in refusal and not spawned,
+                    f"--num_ranks {RANKS_CLI} on {cards} card(s): refusal {refusal!r}, "
+                    f"{len(spawned)} launch(es)")
+            rows.append(f"on cuda refused before any rank started in {refused_s:.2f} s: "
+                        f"{refusal!r}")
+            stats, secs = run(argv + ["--device", "cpu"])
+            rows.append(f"--device cpu: {RANKS_CLI} gloo ranks, rank 0's stats "
+                        f"{json.dumps(stats)} in {secs:.2f} s (spawn to results)")
+        else:
+            stats, secs = run(argv)
+            rows.append(f"{RANKS_CLI} NCCL ranks through the CLI, a card each: rank 0's "
+                        f"stats {json.dumps(stats)} in {secs:.2f} s (spawn to results)")
+            t0 = time.perf_counter()
+            ranks = launch_mod.launch(cli_rank, RANKS_CLI, args=(argv,), backend="nccl",
+                                      timeout=None)
+            secs = time.perf_counter() - t0
+            for r, got in enumerate(ranks):
+                require(got["card"] == r and got["stats"]["examples"] == CLI_EXAMPLES
+                        and got["launches"] == scan_launches(streams=CLI_EXAMPLES // 2),
+                        f"rank {r}: card {got['card']}, launches {got['launches']}, "
+                        f"stats {got['stats']}")
+            rows.append(f"the rank side launched here: ranks on cards "
+                        f"{[g['card'] for g in ranks]}, K1 launches "
+                        f"{[g['launches'] for g in ranks]}, each rank's first K1 call "
+                        f"({ranks[0]['k1_shape']}) bit-equal to its plain version, "
+                        f"{secs:.2f} s")
+    print(f"ranks-cli: run_networks -c efcn_event_full.yml --num_streams 2 --num_ranks "
+          f"{RANKS_CLI} over {CLI_EXAMPLES} examples of {CLI_EVENTS} events with {cards} "
+          "card(s): " + "; ".join(rows) + f"; card {smi!r}", flush=True)
+    return rows
+
+
+# ---- phase 34: the window memory model on the card -----------------------------
+
+# tests/test_memory_model.py's off-calibration geometries (T = 24 chunks of
+# 16 events), then the eFCN of configs/efcn_event.yml at the main path's T
+MEM_GEOMETRIES = (
+    ("thin_stem_64x96", "conv1=3,3,1,4 pool1=2,2 conv2=3,3,4,8", 64, 96, 24, 16),
+    ("deep_32x48", "conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,16 pool2=2,2 conv3=3,3,16,32 "
+     "pool3=2,2 conv4=1,1,32,16", 32, 48, 24, 16),
+    ("polarity_48x48", "conv1=3,3,2,8 pool1=2,2 conv2=1,1,8,12", 48, 48, 24, 16),
+)
+MEM_BUDGETS_MB = (256, 1024)
+# the model against the measured peak without outputs, as the JAX test holds
+# it against XLA's temp_size: the 2x-safe budget covers it, and the model is
+# not so loose that windows collapse
+MEM_SLACK = 30
+
+
+def peak_bytes(fn):
+    """``fn()``'s peak device bytes above what was allocated before it, and
+    the bytes of what it returns (allocated after it, above before): the
+    peak with outputs and, minus the second, without them."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, torch.cuda.max_memory_allocated() - base, \
+        torch.cuda.memory_allocated() - base
+
+
+def memory_model_phase(dev, smi):
+    """Phase 34: EventNetwork.parallel_live_bytes_per_chunk and auto_window
+    against the card's own peak (torch.cuda.max_memory_allocated above the
+    bytes allocated before one scan_parallel call), at
+    tests/test_memory_model.py's three geometries and the eFCN (T=200
+    chunks of 256 events): 2 * model * T covers the peak without outputs
+    (XLA's temp_size in the JAX test), model * T is at most MEM_SLACK
+    times it, and at the eFCN scan_parallel(window=auto_window(T, B))
+    stays within B MB for each budget of MEM_BUDGETS_MB, its grids within
+    OUT_TOL of the unwindowed call's and its end surface bit-equal.  Each
+    call is measured twice (the first sets cuDNN up) and the larger peak
+    kept."""
+    from async_ev_cnn_torch.layers.network import EventNetwork
+    from async_ev_cnn_torch.utils.config import config, layers_dict
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+    from async_ev_cnn_torch.utils.weights import params_from_jax
+
+    efcn = config(["-c", str(HERE / "configs" / "efcn_event.yml")]).yolo_cnn_layers
+    geoms = [(name, layers_dict(dsl), h, w, t, cap)
+             for name, dsl, h, w, t, cap in MEM_GEOMETRIES]
+    geoms.append(("efcn_160x224", efcn, H, W, T_CHUNKS, CAPACITY))
+    rows, failed = [], []
+    for name, layer_defs, h, w, t, cap in geoms:
+        rng = np.random.RandomState(34)
+        net = EventNetwork(layer_defs, h, w, leak=1e-4, alpha=0.1, padding="SAME",
+                           conv_mode="full")
+        params = params_from_jax(make_params(layer_defs, rng), dev)
+        state = net.init_state(params, dev)
+        n = t * cap
+        cols = [rng.randint(0, h, n), rng.randint(0, w, n), np.sort(rng.randint(1, 5000, n))]
+        if net.event_layers[0].spec.channels == 2:
+            cols.append(rng.randint(0, 2, n))
+        chunks = pack_chunks(np.stack(cols, axis=-1).astype(np.int32), cap, device=dev)
+        runs = [peak_bytes(lambda: net.scan_parallel(params, state, chunks)) for _ in range(2)]
+        (st_all, out_all), _, out_bytes = runs[0]
+        peak = max(r[1] for r in runs)
+        temp = peak - out_bytes
+        model = net.parallel_live_bytes_per_chunk()
+        row = (f"{name} T={t} E={cap}: model {model} B/chunk x {t} = {model * t} B, peak "
+               f"{peak} B with outputs ({runs[0][1]} first call, {runs[1][1]} second), "
+               f"{temp} B without, 2*model*T/peak {2 * model * t / temp:.3f}, "
+               f"model*T/peak {model * t / temp:.3f}")
+        if 2 * model * t < temp:
+            failed.append(f"{name}: 2 * model * T = {2 * model * t} B < measured {temp} B")
+        if model * t > MEM_SLACK * temp:
+            failed.append(f"{name}: model * T = {model * t} B > {MEM_SLACK} x {temp} B")
+        if t == T_CHUNKS:
+            for budget in MEM_BUDGETS_MB:
+                win = net.auto_window(t, budget)
+                runs = [peak_bytes(lambda: net.scan_parallel(params, state, chunks, window=win))
+                        for _ in range(2)]
+                (st_w, out_w), _, _ = runs[0]
+                win_peak = max(r[1] for r in runs)
+                err = float((out_w - out_all).abs().max())
+                row += (f"; budget {budget} MB: window {win}, peak {win_peak} B "
+                        f"({win_peak / 2**20:.2f} MB), grids within {err:.2e}")
+                if win_peak > budget * 2**20:
+                    failed.append(f"{name}: window {win} of budget {budget} MB peaks at "
+                                  f"{win_peak / 2**20:.2f} MB")
+                require(err <= OUT_TOL and bit_equal(st_w[0].surface, st_all[0].surface),
+                        f"{name}: the window of {budget} MB changes the result ({err})")
+        rows.append(row)
+        del net, params, state, chunks, runs, st_all, out_all
+    print("memory-model: EventNetwork.scan_parallel's peak on the card "
+          "(max_memory_allocated above the bytes before the call) against "
+          "parallel_live_bytes_per_chunk and auto_window: " + "; ".join(rows)
+          + f"; card {smi!r}", flush=True)
+    require(not failed, "the window memory model under-counts the card: " + "; ".join(failed))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3302,6 +3607,9 @@ def main() -> int:
     cli_phases(dev, args, num_classes, smi)
     mesh = mesh_phase(dev, args, model, num_classes, num_bbox, smi)
     ranks_phase(mesh, smi)
+    orbax_phase(model, kwargs, items, smi)
+    ranks_cli_phase(dev, smi)
+    memory_model_phase(dev, smi)
     # the mesh paths' launches (phase 30): K1 on the engine's scan_parallel
     # and the mesh pipeline, K3 on the engine's 'sparse_pallas' scan
     rulebook_kernels[0]["mesh_launches"] = mesh["k3_launches"]
@@ -3374,10 +3682,41 @@ def path_rates(dev, runs: int = 3) -> list:
     return rates
 
 
+def window_times(dev) -> dict:
+    """The eFCN's ``scan_parallel`` over phase 34's T=200 chunks with
+    ``window_budget_mb`` at each of MEM_BUDGETS_MB (and unwindowed): the
+    window ``auto_window`` picks, ms a call (CUDA events, median of 5
+    means of 3 calls) and the peak above the bytes before the call."""
+    from async_ev_cnn_torch.layers.network import EventNetwork
+    from async_ev_cnn_torch.utils.config import config
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+    from async_ev_cnn_torch.utils.weights import params_from_jax
+
+    layer_defs = config(["-c", str(HERE / "configs" / "efcn_event.yml")]).yolo_cnn_layers
+    rng = np.random.RandomState(34)
+    net = EventNetwork(layer_defs, H, W, leak=1e-4, alpha=0.1, padding="SAME",
+                       conv_mode="full")
+    params = params_from_jax(make_params(layer_defs, rng), dev)
+    state = net.init_state(params, dev)
+    n = T_CHUNKS * CAPACITY
+    cols = [rng.randint(0, H, n), rng.randint(0, W, n), np.sort(rng.randint(1, 5000, n))]
+    chunks = pack_chunks(np.stack(cols, axis=-1).astype(np.int32), CAPACITY, device=dev)
+    out = {}
+    for budget in (None,) + MEM_BUDGETS_MB:
+        def call(budget=budget):
+            return net.scan_parallel(params, state, chunks, window_budget_mb=budget)
+        ms = time_ms(call, 3)
+        _, peak, _ = peak_bytes(call)
+        out[str(budget)] = {"window": None if budget is None else net.auto_window(T_CHUNKS, budget),
+                            "ms": ms, "peak_mb": peak / 2**20}
+    return out
+
+
 def kernel_times() -> dict:
-    """K2 and K6 at the main path's shapes by device time, and phase 4's
-    path by events/s, with the package that ``sys.path`` finds: the worker
-    of :func:`compare`.  Only public calls, which a parent commit shares."""
+    """K2 and K6 at the main path's shapes by device time, phase 4's path
+    by events/s and the eFCN's windowed scan_parallel (:func:`window_times`),
+    with the package that ``sys.path`` finds: the worker of
+    :func:`compare`.  Only public calls, which a parent commit shares."""
     from async_ev_cnn_torch.ops import cuda_build
     from async_ev_cnn_torch.ops import fused_stem as tf
     from async_ev_cnn_torch.ops import integrate as it
@@ -3413,14 +3752,14 @@ def kernel_times() -> dict:
             "k6_ms": device_ms(k6), "k6_kernel_ms": device_ms(k6, "fused_stem_kernel"),
             "k6_call_ms": time_ms(k6, 50),
             "k6_sass_per_px_ch": None if sass is None else sass[3],
-            "path_events_s": path_rates(dev)}
+            "path_events_s": path_rates(dev), "window": window_times(dev)}
 
 
 def compare(parent: Path) -> int:
-    """K2, K6 and phase 4's path of the checkout at ``parent`` against this
-    one's on one card, in the order parent, this, this, parent: each a
-    process of its own that imports its tree's package and builds its
-    kernels."""
+    """K2, K6, phase 4's path and the eFCN's windowed scan_parallel of the
+    checkout at ``parent`` against this one's on one card, in the order
+    parent, this, this, parent: each a process of its own that imports its
+    tree's package and builds its kernels."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -3438,7 +3777,10 @@ def compare(parent: Path) -> int:
         f"{r['tree']}: K2 device {r['k2_ms']:.5f} ms (a call {r['k2_call_ms']:.4f}), K6 device "
         f"{r['k6_ms']:.5f} ms (kernel {r['k6_kernel_ms']:.5f}, a call {r['k6_call_ms']:.4f}, "
         f"SASS a pooled pixel and channel {r['k6_sass_per_px_ch']}), phase 4's path "
-        f"{', '.join(f'{x:.0f}' for x in r['path_events_s'])} events/s" for r in rows))
+        f"{', '.join(f'{x:.0f}' for x in r['path_events_s'])} events/s, the eFCN's "
+        "scan_parallel (T=200) " + ", ".join(
+            f"at {b} MB window {v['window']} {v['ms']:.3f} ms peak {v['peak_mb']:.2f} MB"
+            for b, v in r["window"].items()) for r in rows))
     return 0
 
 

@@ -228,12 +228,79 @@ def test_restrict_vars_and_object_graph_names(tmp_path, weights):
     assert sorted(flat) == sorted(set(weights) | {"_CHECKPOINTABLE_OBJECT_GRAPH"})
 
 
-def test_orbax_directory_refused(tmp_path):
+# ---- Orbax directories (tensorstore) -------------------------------------------
+
+
+def _orbax_weights(weights):
+    """The weights with a 0-d int32 among them (the scalars an Orbax tree
+    holds as 0-d arrays)."""
+    return {**weights, "global_step": np.array(1234, np.int32)}
+
+
+def test_orbax_jax_to_port(tmp_path, weights):
+    """A directory written by the JAX package's save_params_orbax (orbax)
+    loads in the port through tensorstore bit for bit, each array with its
+    own dtype and shape, 0-d included; restrict_vars keeps the names it
+    holds (the JAX Orbax branch's rule)."""
+    pytest.importorskip("tensorstore")
+    params = _orbax_weights(weights)
+    d = str(tmp_path / "orbax_ckpt")
+    jck.save_params_orbax(d, params)
+    _assert_same_arrays(tck.load_params_orbax(d), params)
+    _assert_same_arrays(tck.load_params(d), jck.load_params(d))
+    keep = {"w_conv1", "global_step", "absent"}
+    got = tck.load_params(d, restrict_vars=keep)
+    _assert_same_arrays(got, jck.load_params(d, restrict_vars=keep))
+    assert sorted(got) == ["global_step", "w_conv1"]
+
+
+def test_orbax_port_to_jax(tmp_path, weights):
+    """A directory written by the port's save_params_orbax loads in the JAX
+    package's load_params_orbax and load_params bit for bit.  A second save
+    replaces it whole (orbax's force=True) and leaves no temporary
+    sibling; the port refuses tensors as save_params does."""
+    pytest.importorskip("tensorstore")
+    params = _orbax_weights(weights)
+    d = str(tmp_path / "orbax_ckpt")
+    tck.save_params_orbax(d, {"stale": np.zeros(3, np.float32)})
+    tck.save_params_orbax(d, params)
+    assert os.listdir(tmp_path) == ["orbax_ckpt"]
+    for load in (jck.load_params_orbax, jck.load_params, tck.load_params):
+        _assert_same_arrays(load(d), params)
+    with pytest.raises(TypeError, match="params_to_jax"):
+        tck.save_params_orbax(d, {"w_conv1": torch.zeros(4, 1, 3, 3)})
+    _assert_same_arrays(tck.load_params(d), params)
+
+
+def test_orbax_nested_tree_refused(tmp_path, weights):
+    """Only flat weight dicts load: a nested tree (key path longer than
+    one) is a plain ValueError."""
+    pytest.importorskip("tensorstore")
+    import orbax.checkpoint as ocp
+
+    d = str(tmp_path / "nested")
+    with ocp.StandardCheckpointer() as ckptr:
+        ckptr.save(d, {"conv1": {"w": weights["w_conv1"]}})
+    with pytest.raises(ValueError, match="nested tree"):
+        tck.load_params(d)
+
+
+def test_orbax_directory_refused(tmp_path, monkeypatch, weights):
+    """Without tensorstore the three Orbax entry points raise
+    NotImplementedError naming it and the .npz / TF-bundle way round."""
+    import sys
+
     d = tmp_path / "orbax_ckpt"
     os.makedirs(d)
     (d / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="Orbax is JAX-only"):
-        tck.load_params(str(d))
+    monkeypatch.setitem(sys.modules, "tensorstore", None)  # import fails
+    for call in (lambda: tck.load_params(str(d)),
+                 lambda: tck.load_params_orbax(str(d)),
+                 lambda: tck.save_params_orbax(str(tmp_path / "out"), weights)):
+        with pytest.raises(NotImplementedError,
+                           match="tensorstore package.*save_params.*save_params_tf"):
+            call()
+    assert not (tmp_path / "out").exists()
 
 
 # ---- stream state ------------------------------------------------------------
@@ -363,17 +430,21 @@ def _model_kwargs():
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-@pytest.mark.parametrize("fmt", ["npz", "bundle", "directory"])
+@pytest.mark.parametrize("fmt", ["npz", "bundle", "directory", "orbax"])
 def test_yolo_event_torch_from_checkpoint(tmp_path, rng, writer, fmt):
     """A model built from a checkpoint of either package holds the same
-    tensors as one given the arrays by set_weights, and scans the same
-    grids bit for bit."""
+    tensors as one given the arrays by set_weights (the same as one loaded
+    from .npz), and scans the same grids bit for bit."""
     _, jp, _, _ = _nets(rng, "full")
     weights = {k: np.asarray(v) for k, v in jp.items()}
     ck = PACKAGES[writer]
     if fmt == "npz":
         path = str(tmp_path / "w.npz")
         ck.save_params(path, weights)
+    elif fmt == "orbax":
+        pytest.importorskip("tensorstore")
+        path = str(tmp_path / "orbax_ckpt")
+        ck.save_params_orbax(path, weights)
     else:
         path = str(tmp_path / "w")
         ck.save_params_tf(path, weights)

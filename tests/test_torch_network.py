@@ -140,6 +140,32 @@ def test_memory_model_matches_jax():
         assert tn.is_all_full and jn.is_all_full
 
 
+@pytest.mark.parametrize("window", [1, 3, 4, 8])
+def test_windowed_scan_parallel_bit_equal_to_unwindowed(rng, window):
+    """The window only batches time: every window, dividing T or not, gives
+    the unwindowed call's surfaces and prev_ts bit for bit, and its outputs
+    bit for bit while every window holds two frames or more.  A window of
+    one frame runs the convs at batch 1, where the CPU's conv library takes
+    another algorithm (1 ulp apart here): those outputs are held within the
+    conv-stack contract, 1e-4."""
+    ld, tn, _ = _nets(DSL)
+    tp = params_from_jax(_params(ld, rng), "cpu")
+    tc, _ = _chunks(rng, 8, 12)
+    st = tn.init_state(tp, "cpu")
+    st_all, out_all = tn.scan_parallel(tp, st, tc)
+    st_w, out_w = tn.scan_parallel(tp, st, tc, window=window)
+    if window > 1:
+        np.testing.assert_array_equal(_bits(out_w), _bits(out_all))
+    else:
+        np.testing.assert_allclose(out_w.numpy(), out_all.numpy(), rtol=0, atol=TOL)
+    np.testing.assert_array_equal(_bits(st_w[0].surface), _bits(st_all[0].surface))
+    assert int(st_w[0].prev_ts) == int(st_all[0].prev_ts)
+    budget = window * 2 * tn.parallel_live_bytes_per_chunk() / 2**20
+    assert tn.auto_window(8, budget) == (None if window == 8 else window)
+    st_b, out_b = tn.scan_parallel(tp, st, tc, window_budget_mb=budget)
+    np.testing.assert_array_equal(_bits(out_b), _bits(out_w))
+
+
 def test_build_layer_defs_match_jax():
     """The same specs field for field, including per-layer @mode tags and
     the coercion of layers after a 'full' one; and the same errors."""

@@ -89,6 +89,24 @@ def test_leaky_and_mask_exact(rng):
             np.asarray(jconv.leaky_mask(jnp.asarray(x), alpha)))
 
 
+def test_leaky_under_autograd_matches_jax_grad(rng):
+    """Under autograd leaky stays out of place: the same bits as the
+    in-place call, and the gradient of JAX's leaky (ties at 0 included)."""
+    import jax
+
+    x = rng.randn(4, 6, 8).astype(np.float32)
+    x[0, 0, :2] = [0.0, -0.0]
+    g = rng.randn(*x.shape).astype(np.float32)
+    tx = _t(x).requires_grad_(True)
+    y = tconv.leaky(tx, 0.1)
+    assert y.requires_grad
+    np.testing.assert_array_equal(y.detach().numpy().view(np.int32),
+                                  tconv.leaky(_t(x), 0.1).numpy().view(np.int32))
+    (y * _t(g)).sum().backward()
+    want = jax.grad(lambda v: (jconv.leaky(v, 0.1) * g).sum())(jnp.asarray(x))
+    np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(want))
+
+
 def _pool_input(rng, shape, dtype):
     if dtype == "bool":
         return rng.rand(*shape) < 0.2

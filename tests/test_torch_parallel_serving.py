@@ -191,6 +191,52 @@ def test_run_networks_multi_stream(tmp_path, capsys, extra, ranks_argv):
     assert not torch.distributed.is_initialized()
 
 
+def test_run_networks_num_ranks_has_no_deadline(tmp_path, capsys, monkeypatch):
+    """--num_ranks 2 --device cpu waits for its ranks however long they
+    run: the CLI hands the launcher timeout=None, and with the launcher's
+    default deadline cut to 1 s the run, which takes longer (two fresh
+    interpreters), still finishes."""
+    import time
+
+    from async_ev_cnn_torch.parallel import launch as launch_mod
+
+    real, timeouts = launch_mod.launch, []
+
+    def spy(*args, **kwargs):
+        timeouts.append(kwargs.get("timeout", "default"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(real, "__defaults__", ((), "gloo", 1.0))
+    monkeypatch.setattr(launch_mod, "launch", spy)
+    cfg = _tree(tmp_path)
+    t0 = time.perf_counter()
+    got = trun.main(["-c", str(cfg), "--num_streams", "2", "--mode", "full",
+                     "--num_ranks", "2"] + CPU)
+    assert time.perf_counter() - t0 > 1.0
+    assert timeouts == [None]
+    assert got["examples"] == 2 and got["events_per_sec"] > 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == got
+
+
+def test_run_networks_num_ranks_refused_past_the_cards(tmp_path, monkeypatch):
+    """On cuda, --num_ranks N with N > torch.cuda.device_count() is refused
+    by the launcher before any rank starts (NCCL takes one card a rank),
+    with a message that names --device cpu; nothing falls back to gloo."""
+    from async_ev_cnn_torch.parallel import launch as launch_mod
+
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(launch_mod.mp, "start_processes", no_spawn)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    cfg = _tree(tmp_path)
+    with pytest.raises(ValueError, match=r"2 NCCL ranks need 2 cards.*0 are present.*"
+                                         r"gloo ranks on the CPU \(--device cpu"):
+        trun.main(["-c", str(cfg), "--num_streams", "2", "--mode", "full",
+                   "--num_ranks", "2", "--device", "cuda"])
+    assert not torch.distributed.is_initialized()
+
+
 def test_dryrun_multichip_cpu(capsys):
     """dryrun_multichip(4, device='cpu'): 4 gloo ranks, every leg within
     1e-5 of the unsharded path."""
