@@ -60,6 +60,7 @@ from async_ev_cnn_torch.ops.rulebook import (
     scatter_row_values,
     scatter_site_values,
 )
+from async_ev_cnn_torch.utils.profiling import span
 
 BLOCK_W = rulebook_gemm.BLOCK_W
 
@@ -122,7 +123,8 @@ def _count(counts, key: str, n: int = 1) -> None:
 def _read_flag(flag: torch.Tensor, counts) -> bool:
     """Bring a device flag to the host: one device-to-host read."""
     _count(counts, "host_syncs")
-    return bool(flag)
+    with span("host.sync"):
+        return bool(flag)
 
 
 def _conv_pair(spec: ConvSpec, kernel, bias, featuremap, conv_actfn):
@@ -134,10 +136,11 @@ def _conv_pair(spec: ConvSpec, kernel, bias, featuremap, conv_actfn):
 
 
 def _dense_update(spec, kernel, bias, state, prev_io, active, fm_leaked):
-    conv_fm, conv_cact = _conv_pair(spec, kernel, bias, prev_io.featuremap,
-                                    prev_io.conv_actfn)
-    return (torch.where(active, conv_fm, fm_leaked),
-            torch.where(active, conv_cact, state.conv_actfn))
+    with span("conv.dense"):
+        conv_fm, conv_cact = _conv_pair(spec, kernel, bias, prev_io.featuremap,
+                                        prev_io.conv_actfn)
+        return (torch.where(active, conv_fm, fm_leaked),
+                torch.where(active, conv_cact, state.conv_actfn))
 
 
 def _make_io(spec: ConvSpec, state: ConvState, mask) -> LayerIO:
@@ -187,20 +190,26 @@ def _hwc_padded(spec: ConvSpec, plane: torch.Tensor) -> torch.Tensor:
     return _padded(spec, plane).permute(1, 2, 0).contiguous()
 
 
-def _kernel_update(spec, kernel, bias, state, prev_io, active, fm_leaked, counts):
-    """'sparse_pallas': K3 over the active 1x8 site blocks at stride 1, K4
-    over the active sites otherwise; None when the sites overflow."""
+def _kernel_sites(spec, active, counts):
+    """'sparse_pallas': the active 1x8 site blocks at stride 1 (K3's), the
+    active sites otherwise (K4's), as ``(ys, xs, valid)``; None when they
+    overflow the capacity."""
     if spec.stride == 1:
         ys, xs, valid, n_blocks = mask_to_block_coords(active, spec.block_capacity,
                                                        BLOCK_W)
         overflow = n_blocks > spec.block_capacity
-        gemm = rulebook_gemm.rulebook_gather_gemm_blocks
     else:
         ys, xs, valid = mask_to_topk_coords(active, spec.capacity)
         overflow = active.sum() > spec.capacity
-        gemm = rulebook_gemm.rulebook_gather_gemm
-    if _read_flag(overflow, counts):
-        return None
+    return None if _read_flag(overflow, counts) else (ys, xs, valid)
+
+
+def _kernel_update(spec, kernel, bias, state, prev_io, active, fm_leaked, counts, sites):
+    """'sparse_pallas': K3 over the active 1x8 site blocks at stride 1, K4
+    over the active sites otherwise (``sites``, :func:`_kernel_sites`)."""
+    ys, xs, valid = sites
+    gemm = (rulebook_gemm.rulebook_gather_gemm_blocks if spec.stride == 1
+            else rulebook_gemm.rulebook_gather_gemm)
     before = rulebook_gemm.LAUNCHES[gemm.__name__]
     fm_vals, ca_vals = gemm(
         _hwc_padded(spec, prev_io.featuremap), _hwc_padded(spec, prev_io.conv_actfn),
@@ -220,9 +229,11 @@ def _kernel_update(spec, kernel, bias, state, prev_io, active, fm_leaked, counts
             scatter_site_values(state.conv_actfn, ys, xs, valid, ca_vals.reshape(-1, o)))
 
 
-def _sparse_update(spec, kernel, bias, state, prev_io, active, fm_leaked, counts):
+def _sparse_update(spec, kernel, bias, state, prev_io, active, fm_leaked, counts,
+                   sites=None):
     """Rulebook update of the active sites, or the dense-masked update when
-    the rulebook's capacity overflows (equivalence is never sacrificed)."""
+    the rulebook's capacity overflows (equivalence is never sacrificed);
+    'sparse_pallas' takes its ``sites`` from :func:`_kernel_sites`."""
     if spec.mode == "sparse_rows":
         # rows mode gathers clamped row indices from the UNPADDED planes
         row_idx, row_valid, fm_rows, ca_rows, overflow = rows_conv_pair(
@@ -234,10 +245,10 @@ def _sparse_update(spec, kernel, bias, state, prev_io, active, fm_leaked, counts
                     scatter_row_values(state.conv_actfn, row_idx, row_valid, active,
                                        ca_rows))
     elif spec.mode == "sparse_pallas":
-        out = _kernel_update(spec, kernel, bias, state, prev_io, active, fm_leaked,
-                             counts)
-        if out is not None:
-            return out
+        if sites is not None:
+            with span("conv.k3"):
+                return _kernel_update(spec, kernel, bias, state, prev_io, active,
+                                      fm_leaked, counts, sites)
     else:
         ys, xs, valid, fm_vals, ca_vals, overflow = rulebook_conv_pair(
             _padded(spec, prev_io.featuremap), _padded(spec, prev_io.conv_actfn),
@@ -261,7 +272,8 @@ def _window_update(spec, kernel, bias, state, prev_io, active, fm_leaked, counts
     kh, kw = spec.ksize
     y0, x0, y1, x1, _ = mask_bounding_box(active)
     _count(counts, "host_syncs")
-    y0, x0, y1, x1 = torch.stack([y0, x0, y1, x1]).tolist()
+    with span("host.sync"):
+        y0, x0, y1, x1 = torch.stack([y0, x0, y1, x1]).tolist()
     if not (y1 - y0 < wh and x1 - x0 < ww):
         _count(counts, "dense_fallbacks")
         return _dense_update(spec, kernel, bias, state, prev_io, active, fm_leaked)
@@ -297,17 +309,20 @@ def conv_step(spec: ConvSpec, kernel, bias, state: ConvState, prev_io: LayerIO,
     if spec.mode == "full":
         return state, _full_io(spec, kernel, bias, prev_io)
 
-    active = dilate_mask(prev_io.mask, spec.ksize, spec.stride, spec.pads)
     before_sign = state.featuremap >= 0
     # snapped, so every copy of this expression agrees on the updated sign
     fm_leaked = state.featuremap - snap(state.conv_actfn * delta_leak)
+    with span("conv.sites"):
+        active = dilate_mask(prev_io.mask, spec.ksize, spec.stride, spec.pads)
+        sites = (_kernel_sites(spec, active, counts) if spec.mode == "sparse_pallas"
+                 else None)
 
     if spec.mode == "window":
         fm, cact = _window_update(spec, kernel, bias, state, prev_io, active,
                                   fm_leaked, counts)
     elif spec.mode in ("sparse", "sparse_pallas", "sparse_rows"):
         fm, cact = _sparse_update(spec, kernel, bias, state, prev_io, active,
-                                  fm_leaked, counts)
+                                  fm_leaked, counts, sites)
     elif spec.mode == "dense":
         fm, cact = _dense_update(spec, kernel, bias, state, prev_io, active, fm_leaked)
     else:

@@ -37,6 +37,7 @@ from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky, matmul_precision
 from async_ev_cnn_torch.ops.integrate import integrate_parallel
 from async_ev_cnn_torch.ops.pool import maxpool_dense
 from async_ev_cnn_torch.utils.device import resolve_device
+from async_ev_cnn_torch.utils.profiling import span
 
 
 class LayerDef(NamedTuple):
@@ -206,6 +207,10 @@ class EventNetwork:
         #: ``kernel_launches`` since the last :meth:`reset_counts`
         self.layer_counts: dict[str, Counter] = {
             ld.name: Counter() for ld in self.event_layers if ld.kind == "conv"}
+        #: each layer's span name, ``layer.<name>``
+        self._spans = {ld.name: f"layer.{ld.name}" for ld in self.event_layers}
+        #: chunks through :meth:`step`: the request number of its spans
+        self._steps = 0
 
     def reset_counts(self) -> None:
         for c in self.layer_counts.values():
@@ -332,17 +337,18 @@ class EventNetwork:
             if upto is not None and i > upto:
                 states.append(st)
                 continue
-            if ld.kind == "intgr":
-                st, prev_io, delta_leak = integration_step(ld.spec, st, chunk)
-            elif ld.kind == "conv":
-                st, prev_io = conv_step(
-                    ld.spec, params[f"w_{ld.name}"], params[f"b_{ld.name}"], st,
-                    self._conv_input(ld, prev_io), delta_leak,
-                    counts=self.layer_counts[ld.name])
-                st, prev_io = self._layer_output(ld, st, prev_io)
-            else:  # pool
-                st, prev_io = pool_step(ld.spec, st, prev_io, delta_leak)
-                st, prev_io = self._layer_output(ld, st, prev_io)
+            with span(self._spans[ld.name]):
+                if ld.kind == "intgr":
+                    st, prev_io, delta_leak = integration_step(ld.spec, st, chunk)
+                elif ld.kind == "conv":
+                    st, prev_io = conv_step(
+                        ld.spec, params[f"w_{ld.name}"], params[f"b_{ld.name}"], st,
+                        self._conv_input(ld, prev_io), delta_leak,
+                        counts=self.layer_counts[ld.name])
+                    st, prev_io = self._layer_output(ld, st, prev_io)
+                else:  # pool
+                    st, prev_io = pool_step(ld.spec, st, prev_io, delta_leak)
+                    st, prev_io = self._layer_output(ld, st, prev_io)
             states.append(st)
             ios[ld.name] = prev_io
         return tuple(states), ios
@@ -350,9 +356,13 @@ class EventNetwork:
     def step(self, params, state: tuple, chunk: EventChunk):
         """One chunk -> ``(new_state, output)``: the last event layer's
         featuremap as ``[H, W, C]`` with the dense tail applied."""
-        state, ios = self.forward(params, state, chunk)
-        last = next(reversed(ios.values()))
-        return state, self.apply_tail(params, last.featuremap.permute(1, 2, 0))
+        self._steps += 1
+        with span("step", self._steps - 1):
+            state, ios = self.forward(params, state, chunk)
+            last = next(reversed(ios.values()))
+            with span("layer.tail"):
+                out = self.apply_tail(params, last.featuremap.permute(1, 2, 0))
+        return state, out
 
     def scan(self, params, state: tuple, chunks: EventChunk):
         """Stacked chunks ``[T, E]`` through :meth:`step` one after another;
@@ -374,36 +384,40 @@ class EventNetwork:
         layers and returns the truncated featuremap (EXCLUSIVE over the
         post-integration layers, as in the JAX package).  A fused stem pair
         (:meth:`_fusion_active`) runs as one space-to-depth conv, unless
-        ``upto`` cuts inside it."""
-        # surface >= 0, so featuremap == surface: no activation mask
-        io = LayerIO(surface=frame, layer_actfn=None, conv_actfn=None, mask=None)
-        layers, states = self.event_layers[1:], state[1:]
-        fuse = bool(self._s2d_pairs) and self._fusion_active()
-        i = 0
-        while i < len(layers):
-            if upto is not None and i >= upto:
+        ``upto`` cuts inside it; its span is the conv's."""
+        with span("scan.conv_stack"):
+            # surface >= 0, so featuremap == surface: no activation mask
+            io = LayerIO(surface=frame, layer_actfn=None, conv_actfn=None, mask=None)
+            layers, states = self.event_layers[1:], state[1:]
+            fuse = bool(self._s2d_pairs) and self._fusion_active()
+            i = 0
+            while i < len(layers):
+                if upto is not None and i >= upto:
+                    return io.featuremap
+                ld, st = layers[i], states[i]
+                with span(self._spans[ld.name]):
+                    if fuse and i in self._s2d_pairs and (upto is None or upto >= i + 2):
+                        fm = stem.fused_conv_pool(self._conv_input(ld, io).featuremap,
+                                                  params[f"w_{ld.name}"],
+                                                  params[f"b_{ld.name}"], ld.spec.alpha)
+                        # one cast at the pair's pooled output: the float32
+                        # conv output is never stored
+                        act = getattr(torch, layers[i + 1].spec.act_dtype)
+                        io = LayerIO(surface=fm.to(act), layer_actfn=None,
+                                     conv_actfn=None, mask=None)
+                        i += 2
+                        continue
+                    if ld.kind == "conv":
+                        _, io = conv_step(ld.spec, params[f"w_{ld.name}"],
+                                          params[f"b_{ld.name}"], st,
+                                          self._conv_input(ld, io), 0.0)
+                    else:
+                        _, io = pool_step(ld.spec, st, io, 0.0)
+                i += 1
+            if upto is not None:
                 return io.featuremap
-            ld, st = layers[i], states[i]
-            if fuse and i in self._s2d_pairs and (upto is None or upto >= i + 2):
-                fm = stem.fused_conv_pool(self._conv_input(ld, io).featuremap,
-                                          params[f"w_{ld.name}"],
-                                          params[f"b_{ld.name}"], ld.spec.alpha)
-                # one cast at the pair's pooled output: the float32 conv
-                # output is never stored
-                act = getattr(torch, layers[i + 1].spec.act_dtype)
-                io = LayerIO(surface=fm.to(act), layer_actfn=None, conv_actfn=None,
-                             mask=None)
-                i += 2
-                continue
-            if ld.kind == "conv":
-                _, io = conv_step(ld.spec, params[f"w_{ld.name}"],
-                                  params[f"b_{ld.name}"], st, self._conv_input(ld, io), 0.0)
-            else:
-                _, io = pool_step(ld.spec, st, io, 0.0)
-            i += 1
-        if upto is not None:
-            return io.featuremap
-        return self.apply_tail(params, io.featuremap.movedim(-3, -1))
+            with span("layer.tail"):
+                return self.apply_tail(params, io.featuremap.movedim(-3, -1))
 
     def scan_parallel(
         self,
@@ -466,8 +480,9 @@ class EventNetwork:
         outs = []
         for a in range(0, t, window):
             cs = EventChunk(*(f.narrow(tax, a, min(window, t - a)) for f in chunks))
-            surfaces, last_ts = integrate_parallel(
-                surf, pts, cs, leak, ts_window=ts_window, engine=integrate_engine)
+            with span("scan.integrate"):
+                surfaces, last_ts = integrate_parallel(
+                    surf, pts, cs, leak, ts_window=ts_window, engine=integrate_engine)
             # the conv stack runs once over every frame of the window
             frames = surfaces.flatten(0, 1) if streams else surfaces
             out = self.full_frame_forward(params, state, frames)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from async_ev_cnn_torch.utils.device import resolve_device
+from async_ev_cnn_torch.utils.profiling import span
 
 
 def validate_int32_ts(ts) -> np.ndarray:
@@ -66,25 +67,34 @@ class EventChunk(NamedTuple):
     def from_arrays(y, x, ts, p=None, capacity: int | None = None,
                     device=None) -> "EventChunk":
         """Builds a padded chunk on ``device`` from variable-length host
-        arrays; raises on timestamps outside the int32 µs contract."""
+        arrays; raises on timestamps outside the int32 µs contract.  On the
+        card each of its five copies comes from pageable memory, so each
+        waits for the card's stream."""
         dev = resolve_device(device)
-        y = np.asarray(y, np.int32)
-        x = np.asarray(x, np.int32)
-        ts = validate_int32_ts(ts)
-        p = np.zeros_like(y) if p is None else np.asarray(p, np.int32)
-        n = y.shape[0]
-        cap = n if capacity is None else capacity
-        if n > cap:
-            raise ValueError(f"chunk of {n} events exceeds capacity {cap}")
-        pad = cap - n
-        valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+        with span("chunk.upload"):
+            y = np.asarray(y, np.int32)
+            x = np.asarray(x, np.int32)
+            ts = validate_int32_ts(ts)
+            p = np.zeros_like(y) if p is None else np.asarray(p, np.int32)
+            n = y.shape[0]
+            cap = n if capacity is None else capacity
+            if n > cap:
+                raise ValueError(f"chunk of {n} events exceeds capacity {cap}")
+            pad = cap - n
+            valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
 
-        def _pad(a):
-            return torch.from_numpy(
-                np.concatenate([a, np.zeros(pad, a.dtype)])).to(dev)
+            def _up(a):
+                t = torch.from_numpy(a)
+                if dev.type != "cuda":
+                    return t.to(dev)
+                with span("host.sync"):
+                    return t.to(dev)
 
-        return EventChunk(y=_pad(y), x=_pad(x), ts=_pad(ts), p=_pad(p),
-                          valid=torch.from_numpy(valid).to(dev))
+            def _pad(a):
+                return _up(np.concatenate([a, np.zeros(pad, a.dtype)]))
+
+            return EventChunk(y=_pad(y), x=_pad(x), ts=_pad(ts), p=_pad(p),
+                              valid=_up(valid))
 
 
 class LayerIO(NamedTuple):

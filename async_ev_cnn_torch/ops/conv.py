@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from async_ev_cnn_torch.ops.numerics import float32_scalar
+from async_ev_cnn_torch.utils.profiling import span
 
 _TIERS = ("highest", "high", "default")
 _MATMUL_PRECISION = "highest"
@@ -133,19 +134,21 @@ def conv2d_dense(
     if x.is_cuda:
         _apply_tier()
     x = x.float()
-    if pt == pb and pl == pr:
-        # symmetric pads (every stride-1 odd kernel): let the conv pad
-        # instead of materialising a padded copy of the input
-        out = F.conv2d(x, kernel.float(), None, stride=stride, padding=(pt, pl))
-    else:
-        out = F.conv2d(F.pad(x, (pl, pr, pt, pb)), kernel.float(), None,
-                       stride=stride)
+    with span("conv.gemm"):
+        if pt == pb and pl == pr:
+            # symmetric pads (every stride-1 odd kernel): let the conv pad
+            # instead of materialising a padded copy of the input
+            out = F.conv2d(x, kernel.float(), None, stride=stride, padding=(pt, pl))
+        else:
+            out = F.conv2d(F.pad(x, (pl, pr, pt, pb)), kernel.float(), None,
+                           stride=stride)
     if bias is not None:
         # added after the sum, as the JAX package does: a bias folded into
         # the conv may round differently, and the incremental layers must
         # agree bit for bit between the sites they update and the ones they
         # keep from an earlier step
-        out.add_(bias.float().reshape(1, -1, 1, 1))
+        with span("conv.bias"):
+            out.add_(bias.float().reshape(1, -1, 1, 1))
     return out[0] if squeeze else out
 
 
@@ -163,5 +166,6 @@ def leaky(x: torch.Tensor, alpha: float) -> torch.Tensor:
     buffer of ``x * alpha``, so a call holds two maps of ``x``'s size, not
     three (the window memory model counts on it); under autograd (the
     trainer) it stays out of place."""
-    y = x * float32_scalar(alpha, "cpu")
-    return torch.maximum(x, y) if y.requires_grad else torch.maximum(x, y, out=y)
+    with span("conv.leaky"):
+        y = x * float32_scalar(alpha, "cpu")
+        return torch.maximum(x, y) if y.requires_grad else torch.maximum(x, y, out=y)

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from async_ev_cnn_torch.ops.conv import conv_pads
+from async_ev_cnn_torch.utils.profiling import span
 
 
 def composite_argmax(surface_w: torch.Tensor, actfn_w: torch.Tensor):
@@ -62,13 +63,14 @@ def maxpool_dense(
     if squeeze:
         x = x[None]
     (pt, pb), (pl, pr) = conv_pads(x.shape[-2], x.shape[-1], kh, kw, stride, padding)
-    if pt or pb or pl or pr:
-        padded = x.new_full((*x.shape[:-2], x.shape[-2] + pt + pb, x.shape[-1] + pl + pr),
-                            _pool_identity(x.dtype))
-        padded[..., pt:pt + x.shape[-2], pl:pl + x.shape[-1]] = x
-        x = padded
-    if x.is_floating_point():
-        out = F.max_pool2d(x, (kh, kw), stride)
-    else:
-        out = x.unfold(-2, kh, stride).unfold(-2, kw, stride).amax((-2, -1))
+    with span("pool.max"):
+        if pt or pb or pl or pr:
+            padded = x.new_full((*x.shape[:-2], x.shape[-2] + pt + pb,
+                                 x.shape[-1] + pl + pr), _pool_identity(x.dtype))
+            padded[..., pt:pt + x.shape[-2], pl:pl + x.shape[-1]] = x
+            x = padded
+        if x.is_floating_point():
+            out = F.max_pool2d(x, (kh, kw), stride)
+        else:
+            out = x.unfold(-2, kh, stride).unfold(-2, kw, stride).amax((-2, -1))
     return out[0] if squeeze else out

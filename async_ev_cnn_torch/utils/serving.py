@@ -12,7 +12,9 @@ in-flight window applies backpressure, released with ONE scalar fetch per
 half-window (the card runs one stream's work in enqueue order, so the
 newest popped dispatch's checksum proves every older one retired).
 Results are yielded in order as :class:`DispatchResult` with
-device-resident ``outputs``.
+device-resident ``outputs``.  Each dispatch records a completion event
+after its ``postprocess`` (a CUDA event, read when it is released; the
+host clock on the CPU), the stamp of :meth:`StreamingPipeline.latency_stats`.
 
 Events cross the link in the smallest wire tier each item fits
 (``wire='auto'``: 2.5 B/event ultra4 -> 3 B ultra -> 4 B compact -> 8 B
@@ -55,6 +57,7 @@ import torch
 
 from async_ev_cnn_torch.layers.types import IntegrationState
 from async_ev_cnn_torch.utils.device import resolve_device
+from async_ev_cnn_torch.utils.profiling import span
 from async_ev_cnn_torch.utils.wire import (
     WIRE_TIERS,
     PinnedStaging,
@@ -198,8 +201,18 @@ class StreamingPipeline:
         self._verbatim_shift = [False] * streams
         #: cumulative serve() counters
         self.stats = {"dispatches": 0, "wire_bytes": 0, "events": 0}
-        # (latency_s, age_s) per retired dispatch for latency_stats()
+        # (latency_s, age_s) per retired dispatch for latency_stats(), from
+        # its completion: the event recorded after its postprocess
         self._lat: deque = deque(maxlen=4096)
+        # completion events, reused in turn: one more than can be in flight
+        self._done = ([torch.cuda.Event(enable_timing=True)
+                       for _ in range(max_in_flight + 1)]
+                      if self._device.type == "cuda" else None)
+        self._turn = 0
+        # the event that maps the completion events to the host clock,
+        # recorded anew at the start of each serve() call, and its host time
+        self._ref = None
+        self._t_ref = 0.0
         # highest wire tier dispatched so far (WIRE_TIERS rank): later
         # dispatches never drop back below it
         self._era = WIRE_TIERS.get(wire, 0)
@@ -217,10 +230,13 @@ class StreamingPipeline:
         return next(t for t, r in WIRE_TIERS.items() if r == self._era)
 
     def latency_stats(self) -> dict:
-        """Per-dispatch ``dispatch_latency_ms`` (enqueue -> proven retired)
-        and ``event_age_ms`` (arrival -> proven retired) quantiles over the
-        last 4096 retired dispatches.  Both are upper bounds: retirement is
-        proven only at the watermark fetches."""
+        """Per-dispatch ``dispatch_latency_ms`` (enqueue begun -> complete) and
+        ``event_age_ms`` (arrival -> complete) quantiles over the last 4096
+        retired dispatches.  A dispatch completes when the card has run its
+        ``postprocess``: a CUDA event recorded after it, put on the host
+        clock through a reference event recorded at the start of each
+        :meth:`serve` call (on the CPU, the host clock when the dispatch
+        returns)."""
         if not self._lat:
             return {"n": 0}
         lat = np.array([l for l, _ in self._lat]) * 1e3
@@ -286,52 +302,53 @@ class StreamingPipeline:
         era; a pinned tier raises on an item that does not fit it.  Padded
         to ``t_chunks`` chunks (default: the pipeline's) with zero-count
         no-op chunks; raises if the events need more."""
-        era = self._era if self._wire == "auto" else 0
-        kp = self._keep_polarity
-        w = None
-        if self._wire == "ultra4" or (self._wire == "auto" and era <= WIRE_TIERS["ultra4"]):
-            w = pack_wire_ultra4(events, self._capacity, keep_polarity=kp)
-            if w is None and self._wire == "ultra4":
-                raise ValueError(
-                    "stream does not fit the ultra4 wire (coords >= 256, "
-                    "within-chunk ts gap >= 16 us, non-monotone "
-                    "within-chunk ts, or capacity < 2); use wire='auto'"
-                )
-        if w is None and (self._wire == "ultra" or (
-                self._wire == "auto" and era <= WIRE_TIERS["ultra"])):
-            w = pack_wire_ultra(events, self._capacity, keep_polarity=kp)
-            if w is None and self._wire == "ultra":
-                raise ValueError(
-                    "stream does not fit the ultra wire (coords >= 256, "
-                    "within-chunk ts gap >= 256 us, or non-monotone "
-                    "within-chunk ts); use wire='auto'"
-                )
-        if w is None and (self._wire == "compact" or (
-                self._wire == "auto" and era <= WIRE_TIERS["compact"])):
-            w = pack_wire_compact(events, self._capacity, keep_polarity=kp)
-            if w is None and self._wire == "compact":
-                raise ValueError(
-                    "stream does not fit the compact wire (coords >= 256 "
-                    "or chunk ts span >= 2**16 us); use wire='auto'"
-                )
-        if w is None:
-            w = pack_wire(events, self._capacity, keep_polarity=kp)
-        if t_chunks is None:
-            t_chunks = self._t_chunks
-        if t_chunks is not None:
-            t0 = w[0].shape[0]
-            if t0 > t_chunks:
-                raise ValueError(
-                    f"{t0} chunks of {self._capacity} events exceed "
-                    f"t_chunks={t_chunks}; feed fewer events per item"
-                )
-            if t0 < t_chunks:
-                w = tuple(
-                    np.concatenate(
-                        [a, np.zeros((t_chunks - t0, *a.shape[1:]), a.dtype)])
-                    for a in w
-                )
-        return w
+        with span("serve.pack"):
+            era = self._era if self._wire == "auto" else 0
+            kp = self._keep_polarity
+            w = None
+            if self._wire == "ultra4" or (self._wire == "auto" and era <= WIRE_TIERS["ultra4"]):
+                w = pack_wire_ultra4(events, self._capacity, keep_polarity=kp)
+                if w is None and self._wire == "ultra4":
+                    raise ValueError(
+                        "stream does not fit the ultra4 wire (coords >= 256, "
+                        "within-chunk ts gap >= 16 us, non-monotone "
+                        "within-chunk ts, or capacity < 2); use wire='auto'"
+                    )
+            if w is None and (self._wire == "ultra" or (
+                    self._wire == "auto" and era <= WIRE_TIERS["ultra"])):
+                w = pack_wire_ultra(events, self._capacity, keep_polarity=kp)
+                if w is None and self._wire == "ultra":
+                    raise ValueError(
+                        "stream does not fit the ultra wire (coords >= 256, "
+                        "within-chunk ts gap >= 256 us, or non-monotone "
+                        "within-chunk ts); use wire='auto'"
+                    )
+            if w is None and (self._wire == "compact" or (
+                    self._wire == "auto" and era <= WIRE_TIERS["compact"])):
+                w = pack_wire_compact(events, self._capacity, keep_polarity=kp)
+                if w is None and self._wire == "compact":
+                    raise ValueError(
+                        "stream does not fit the compact wire (coords >= 256 "
+                        "or chunk ts span >= 2**16 us); use wire='auto'"
+                    )
+            if w is None:
+                w = pack_wire(events, self._capacity, keep_polarity=kp)
+            if t_chunks is None:
+                t_chunks = self._t_chunks
+            if t_chunks is not None:
+                t0 = w[0].shape[0]
+                if t0 > t_chunks:
+                    raise ValueError(
+                        f"{t0} chunks of {self._capacity} events exceed "
+                        f"t_chunks={t_chunks}; feed fewer events per item"
+                    )
+                if t0 < t_chunks:
+                    w = tuple(
+                        np.concatenate(
+                            [a, np.zeros((t_chunks - t0, *a.shape[1:]), a.dtype)])
+                        for a in w
+                    )
+            return w
 
     def _rebase_stream(self, ev: np.ndarray, i: int) -> tuple[np.ndarray, int]:
         """Apply stream ``i``'s epoch to a raw event array, advancing the
@@ -457,6 +474,22 @@ class StreamingPipeline:
         wires = [wire_to_tier(w, self.wire_tier) for w in wires]
         return wires, deltas
 
+    def _completion(self):
+        """Record the completion mark of the dispatch just enqueued: a CUDA
+        event of the pool on the card, the host clock on the CPU."""
+        if self._done is None:
+            return time.time()
+        ev = self._done[self._turn]
+        self._turn = (self._turn + 1) % len(self._done)
+        ev.record()
+        return ev
+
+    def _completed_at(self, mark) -> float:
+        """A completion mark's host time (its event has run)."""
+        if self._done is None:
+            return mark
+        return self._t_ref + self._ref.elapsed_time(mark) / 1e3
+
     def _shift_prev_ts(self, st, deltas: np.ndarray):
         """Rebase shift on the device: two floor-clipped int32 subtractions
         of halves <= 2**30, so no intermediate underflows.  The floor binds
@@ -477,11 +510,15 @@ class StreamingPipeline:
 
     def _dispatch(self, wire, deltas):
         st = self._shift_prev_ts(self._state, deltas)
-        chunks = chunks_from_wire_any(wire_to_device(wire, self._device, self._staging),
-                                      polarity=self._keep_polarity)
+        with span("serve.upload"):
+            planes = wire_to_device(wire, self._device, self._staging)
+        with span("serve.unpack"):
+            chunks = chunks_from_wire_any(planes, polarity=self._keep_polarity)
         st, outs = self._net.scan_parallel(self._params, st, chunks, window=self._window)
+        with span("serve.post"):
+            post = self._post(outs)
         # tiny checksum for retirement syncs: one scalar fetch proves it
-        return st, self._post(outs), outs.mean()
+        return st, post, outs.mean(), self._completion()
 
     def serve(self, source: Iterable) -> Iterator[DispatchResult]:
         """Drive the pipeline over ``source`` — host ``[N, >=3]`` event
@@ -495,17 +532,27 @@ class StreamingPipeline:
         own streams' results (:meth:`gather_results` assembles them)."""
         it = iter(source)
         in_flight: deque = deque()
+        if self._done is not None:
+            with span("host.sync"):
+                self._ref = torch.cuda.Event(enable_timing=True)
+                self._ref.record()
+                self._ref.synchronize()
+        self._t_ref = time.time()
 
         def release(bound):
             popped = []
             while len(in_flight) > bound:
                 popped.append(in_flight.popleft())
-            if popped:
-                float(popped[-1][2])  # one scalar fetch proves retirement
-                t_ret = time.time()
-                for outs, n, _, counts, t_enq, t_arr in popped:
-                    self._lat.append((t_ret - t_enq, t_ret - t_arr))
-                    yield DispatchResult(outs, n, counts)
+            if not popped:
+                return
+            with span("serve.release", popped[-1][6]):
+                with span("host.sync"):
+                    float(popped[-1][2])  # one scalar fetch proves retirement
+                for _, _, _, _, t_enq, t_arr, _, mark in popped:
+                    t_done = self._completed_at(mark)
+                    self._lat.append((t_done - t_enq, t_done - t_arr))
+            for outs, n, _, counts, *_ in popped:
+                yield DispatchResult(outs, n, counts)
 
         while True:
             group = []
@@ -518,29 +565,33 @@ class StreamingPipeline:
             # arrival is stamped after the source yields: waiting for the
             # source is not staleness; a PreparedItem's events exist from
             # its prepare() call, and the dispatch ages from its oldest
+            k = self.stats["dispatches"]  # the dispatch's number, its spans' request
             t_arrival = time.time()
             for item in (group[i] for i in self._slots):
                 if isinstance(item, PreparedItem) and item.t_created is not None:
                     t_arrival = min(t_arrival, item.t_created)
             try:
-                wires, deltas = self._admit_group(group)
+                with span("serve.admit", k):
+                    wires, deltas = self._admit_group(group)
+                    # the counts plane: index 2 in the plain triple, 3 in the
+                    # sub-plain tiers (the polarity plane, when present, is last)
+                    counts = [w[2] if len(w) == 3 else w[3] for w in wires]
+                    n = sum(int(c.sum()) for c in counts)
+                    if self._streams == 1:  # no stream axis (a mesh has S >= 2)
+                        wire, counts, deltas = wires[0], counts[0], deltas[:, 0]
+                    else:
+                        wire = tuple(np.stack(parts) for parts in zip(*wires))
+                        counts = np.stack(counts)
             except ValueError:
                 yield from release(0)  # F3: completed work is not lost
                 raise
-            # the counts plane: index 2 in the plain triple, 3 in the
-            # sub-plain tiers (the polarity plane, when present, is last)
-            counts = [w[2] if len(w) == 3 else w[3] for w in wires]
-            n = sum(int(c.sum()) for c in counts)
-            if self._streams == 1:  # no stream axis (a mesh has S >= 2)
-                wire, counts, deltas = wires[0], counts[0], deltas[:, 0]
-            else:
-                wire = tuple(np.stack(parts) for parts in zip(*wires))
-                counts = np.stack(counts)
             self.stats["dispatches"] += 1
             self.stats["wire_bytes"] += sum(a.nbytes for a in wire)
             self.stats["events"] += n
-            self._state, outs, chk = self._dispatch(wire, deltas)
-            in_flight.append((outs, n, chk, counts, time.time(), t_arrival))
+            with span("serve.dispatch", k):
+                t_enq = time.time()
+                self._state, outs, chk, mark = self._dispatch(wire, deltas)
+            in_flight.append((outs, n, chk, counts, t_enq, t_arrival, k, mark))
             if len(in_flight) >= self._max_in_flight:
                 yield from release(self._max_in_flight // 2)
         yield from release(0)

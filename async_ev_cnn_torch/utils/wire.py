@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from async_ev_cnn_torch.layers.types import EventChunk, validate_int32_ts
+from async_ev_cnn_torch.utils.profiling import span
 
 
 def _polarity_col(events: np.ndarray) -> np.ndarray:
@@ -442,7 +443,8 @@ class PinnedStaging:
             slots.append((torch.empty(a.shape, dtype=dtype, pin_memory=True),
                           torch.cuda.Event()))
         buf, done = slots[k]
-        done.synchronize()  # the copy out of this buffer has run
+        with span("host.sync"):
+            done.synchronize()  # the copy out of this buffer has run
         buf.numpy()[...] = a
         out = buf.to(device, non_blocking=True)
         done.record(torch.cuda.current_stream(device))
