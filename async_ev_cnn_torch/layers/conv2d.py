@@ -39,12 +39,11 @@ import torch
 import torch.nn.functional as F
 
 from async_ev_cnn_torch.layers.types import ConvState, LayerIO
-from async_ev_cnn_torch.ops import rulebook_gemm
+from async_ev_cnn_torch.ops import epilogue, rulebook_gemm
 from async_ev_cnn_torch.ops.conv import (
     conv2d_dense,
     conv_out_shape,
     conv_pads,
-    leaky,
     leaky_mask,
 )
 from async_ev_cnn_torch.ops.masks import (
@@ -156,11 +155,11 @@ def _full_io(spec: ConvSpec, kernel, bias, prev_io: LayerIO) -> LayerIO:
     ``layer_actfn`` is ``None`` (the scalar 1 of the JAX package).  The
     conv and the activation run in float32; the activated map is then
     stored as ``spec.act_dtype`` (a bf16 cast rounds to nearest even, as
-    ``astype(jnp.bfloat16)`` does)."""
-    fm = leaky(conv2d_dense(prev_io.featuremap, kernel, bias, spec.stride,
-                            spec.padding), spec.alpha)
-    return LayerIO(surface=fm.to(getattr(torch, spec.act_dtype)), layer_actfn=None,
-                   conv_actfn=None, mask=None)
+    ``astype(jnp.bfloat16)`` does).  Bias, activation and cast are one
+    :func:`~async_ev_cnn_torch.ops.epilogue.conv_epilogue`."""
+    fm = epilogue.conv_epilogue(conv2d_dense(prev_io.featuremap, kernel, None, spec.stride,
+                                             spec.padding), bias, spec.alpha, spec.act_dtype)
+    return LayerIO(surface=fm, layer_actfn=None, conv_actfn=None, mask=None)
 
 
 def conv_init(spec: ConvSpec, kernel, bias, prev_init_io: LayerIO

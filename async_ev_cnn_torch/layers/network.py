@@ -32,7 +32,7 @@ from async_ev_cnn_torch.layers.integration import (
 )
 from async_ev_cnn_torch.layers.maxpool import PoolSpec, pool_init, pool_step
 from async_ev_cnn_torch.layers.types import EventChunk, IntegrationState, LayerIO
-from async_ev_cnn_torch.ops import stem
+from async_ev_cnn_torch.ops import epilogue, stem
 from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky, matmul_precision
 from async_ev_cnn_torch.ops.integrate import integrate_parallel
 from async_ev_cnn_torch.ops.pool import maxpool_dense
@@ -196,12 +196,16 @@ class EventNetwork:
         # conv+pool pairs the parallel path MAY run as one space-to-depth
         # conv: indices into event_layers[1:] of the conv whose following
         # pool could fold in; whether they fuse is _fusion_active's call
+        pairs = [(i, c.spec, p.spec)
+                 for i, (c, p) in enumerate(zip(self.event_layers[1:], self.event_layers[2:]))
+                 if c.kind == "conv" and p.kind == "pool"]
         self._s2d_pairs = frozenset(
-            i
-            for i, (c, p) in enumerate(zip(self.event_layers[1:], self.event_layers[2:]))
-            if c.kind == "conv" and p.kind == "pool"
-            and stem.s2d_pair_applicable(c.spec, p.spec) and stem.s2d_pair_wins(c.spec)
-        )
+            i for i, c, p in pairs
+            if stem.s2d_pair_applicable(c, p) and stem.s2d_pair_wins(c))
+        # conv+pool pairs whose pool the conv's epilogue takes
+        # (ops.epilogue.conv_epilogue, pooled), where no s2d fusion does
+        self._epilogue_pairs = frozenset(
+            i for i, c, p in pairs if epilogue.pair_fuses(c, p))
         #: per conv layer of the sequential engine: host reads of device
         #: flags (``host_syncs``), ``dense_fallbacks`` and
         #: ``kernel_launches`` since the last :meth:`reset_counts`
@@ -239,6 +243,16 @@ class EventNetwork:
             return (prec == "default" and stem.allow_demoted_precision
                     and self._act_dtype == "float32")
         return False
+
+    def _fused_pairs(self) -> dict[int, str]:
+        """The conv+pool pairs :meth:`full_frame_forward` runs as one op at
+        this call, by the conv's index into ``event_layers[1:]``: 's2d' (one
+        space-to-depth conv, where :meth:`_fusion_active`) or 'epilogue'
+        (cuDNN's conv and one pooled epilogue)."""
+        pairs = dict.fromkeys(self._epilogue_pairs, "epilogue")
+        if self._s2d_pairs and self._fusion_active():
+            pairs.update(dict.fromkeys(self._s2d_pairs, "s2d"))
+        return pairs
 
     # ---- memory model for the parallel-in-time path ---------------------
 
@@ -382,21 +396,24 @@ class EventNetwork:
         where the JAX package vmaps over T).  Returns the YOLO-grid output
         ``[(N,) h, w, c]``.  ``upto`` truncates after that many conv/pool
         layers and returns the truncated featuremap (EXCLUSIVE over the
-        post-integration layers, as in the JAX package).  A fused stem pair
-        (:meth:`_fusion_active`) runs as one space-to-depth conv, unless
-        ``upto`` cuts inside it; its span is the conv's."""
+        post-integration layers, as in the JAX package).  A pair of
+        :meth:`_fused_pairs` runs as one space-to-depth conv ('s2d') or as
+        cuDNN's conv and one pooled epilogue (bias, activation and pool,
+        :mod:`~async_ev_cnn_torch.ops.epilogue`), unless ``upto`` cuts
+        inside it; the pair's span is the conv's."""
         with span("scan.conv_stack"):
             # surface >= 0, so featuremap == surface: no activation mask
             io = LayerIO(surface=frame, layer_actfn=None, conv_actfn=None, mask=None)
             layers, states = self.event_layers[1:], state[1:]
-            fuse = bool(self._s2d_pairs) and self._fusion_active()
+            fused = self._fused_pairs()
             i = 0
             while i < len(layers):
                 if upto is not None and i >= upto:
                     return io.featuremap
                 ld, st = layers[i], states[i]
+                pair = fused.get(i) if upto is None or upto >= i + 2 else None
                 with span(self._spans[ld.name]):
-                    if fuse and i in self._s2d_pairs and (upto is None or upto >= i + 2):
+                    if pair == "s2d":
                         fm = stem.fused_conv_pool(self._conv_input(ld, io).featuremap,
                                                   params[f"w_{ld.name}"],
                                                   params[f"b_{ld.name}"], ld.spec.alpha)
@@ -405,6 +422,16 @@ class EventNetwork:
                         act = getattr(torch, layers[i + 1].spec.act_dtype)
                         io = LayerIO(surface=fm.to(act), layer_actfn=None,
                                      conv_actfn=None, mask=None)
+                        i += 2
+                        continue
+                    if pair == "epilogue":
+                        fm = epilogue.conv_epilogue(
+                            conv2d_dense(self._conv_input(ld, io).featuremap,
+                                         params[f"w_{ld.name}"], None, ld.spec.stride,
+                                         ld.spec.padding),
+                            params[f"b_{ld.name}"], ld.spec.alpha, ld.spec.act_dtype,
+                            pooled=True)
+                        io = LayerIO(surface=fm, layer_actfn=None, conv_actfn=None, mask=None)
                         i += 2
                         continue
                     if ld.kind == "conv":

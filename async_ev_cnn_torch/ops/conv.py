@@ -167,5 +167,11 @@ def leaky(x: torch.Tensor, alpha: float) -> torch.Tensor:
     three (the window memory model counts on it); under autograd (the
     trainer) it stays out of place."""
     with span("conv.leaky"):
-        y = x * float32_scalar(alpha, "cpu")
-        return torch.maximum(x, y) if y.requires_grad else torch.maximum(x, y, out=y)
+        return activate(x, alpha)
+
+
+def activate(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """:func:`leaky`'s arithmetic without its span, for a caller inside a
+    span of its own (the plain conv epilogue)."""
+    y = x * float32_scalar(alpha, "cpu")
+    return torch.maximum(x, y) if y.requires_grad else torch.maximum(x, y, out=y)

@@ -264,15 +264,15 @@ def profile_layers_parallel(net, params, chunks, reps: int = 3, dispatches: int 
         return _best_ms(run, device, reps) / dispatches
 
     names = ["integrate"] + [ld.name for ld in net.event_layers[1:]]
-    # conv+pool pairs the forward runs as ONE space-to-depth op must be
-    # probed as one row: cutting between them would time an unfused conv
-    # that the path never runs
-    fused = net._s2d_pairs if net._fusion_active() else frozenset()
+    # conv+pool pairs the forward runs as ONE op (a space-to-depth conv, or
+    # a conv and its pooled epilogue) must be probed as one row: cutting
+    # between them would time an unfused conv that the path never runs
+    fused = net._fused_pairs()
     probes = []
     k = 0
     while k < len(names):
         if (k - 1) in fused and k + 1 < len(names):
-            probes.append((k + 1, f"{names[k]}+{names[k + 1]} (s2d)"))
+            probes.append((k + 1, f"{names[k]}+{names[k + 1]} ({fused[k - 1]})"))
             k += 2
         else:
             probes.append((k, names[k]))

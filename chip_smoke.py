@@ -260,7 +260,14 @@ Then Orbax checkpoints, the ranks CLI and the window memory model:
     2 * model * T covers the peak without outputs, model * T is at most
     30 times it, and auto_window(200, B) keeps the eFCN's windowed call
     within B MB at B = 256 and 1024 (grids within 1e-4, end surface
-    bit-equal).
+    bit-equal);
+35. epilogue (run after phase 15): the conv epilogue
+    (csrc/conv_epilogue.cu) at the eFCN's seven conv outputs of a served
+    dispatch (N = 1,024 frames), equal to
+    its plain version (torch.equal) in float32 and bf16, each layer's
+    device time and their sum beside the bound (bytes), the plain
+    version's time and the unfused layers' passes (the bias add, x * alpha,
+    the maximum, F.max_pool2d) by device time.
 
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's to K6's ``ms`` are their device time per call from
@@ -1296,6 +1303,78 @@ def stem_kernel_phase(dev, model, c0):
             "source": "async_ev_cnn_torch/csrc/fused_stem.cu",
             "replaces": "examples/pallas_stem_negative.py:74", "launches": launches,
             "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, **times}
+
+
+# the eFCN's conv outputs in one served dispatch of the benchmark's replay
+# cell (16 streams x 64 chunks = 1,024 frames): (name, C, H, W, pooled)
+EPILOGUE_N = 1024
+# conv epilogue launches a dispatch of the eFCN: one after each conv
+EPILOGUES = 7
+EPILOGUE_LAYERS = (
+    ("conv1", 16, 160, 224, True), ("conv2", 32, 80, 112, True),
+    ("conv3", 64, 40, 56, True), ("conv4", 128, 20, 28, True),
+    ("conv5", 256, 10, 14, True), ("conv6", 512, 5, 7, False),
+    ("conv7", 110, 5, 7, False),
+)
+
+
+def epilogue_phase(dev, smi):
+    """Phase 35: the conv epilogue kernel (csrc/conv_epilogue.cu) at the
+    eFCN's seven conv outputs of a served dispatch (N = EPILOGUE_N), each
+    equal to its plain version (torch.equal) in float32 and bf16; its device
+    time beside its bound (bytes: the raw output read once, the result
+    written once), the plain version's time by CUDA events and, as the
+    yardstick, the device time of the unfused layers' passes (the bias
+    add, x * alpha, the maximum and F.max_pool2d), a layer and summed.
+    Returns the kernel's entry of the kernels' JSON line, less its
+    launches, which are the main path's."""
+    from async_ev_cnn_torch.ops import epilogue as ep
+
+    g = torch.Generator(device=dev).manual_seed(35)
+    rows, launches, err = [], 0, 0.0
+    for name, c, h, w, pooled in EPILOGUE_LAYERS:
+        raw = torch.randn(EPILOGUE_N, c, h, w, generator=g, device=dev)
+        bias = torch.randn(c, generator=g, device=dev) * 0.3
+        for act in ("float32", "bfloat16"):
+            before = ep.LAUNCHES["conv_epilogue"]
+            got = ep.conv_epilogue(raw, bias, 0.1, act, pooled=pooled)
+            launches += ep.LAUNCHES["conv_epilogue"] - before
+            want = ep.conv_epilogue_plain(raw.clone(), bias, 0.1, act, pooled=pooled)
+            torch.cuda.synchronize()
+            require(got.dtype == want.dtype and torch.equal(got, want),
+                    f"the conv epilogue at {name} ({act}) differs from its plain version")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            del got, want
+        out_px = (h // 2) * (w // 2) if pooled else h * w
+        b_ms, _ = bound_ms(4 * raw.numel() + 4 * EPILOGUE_N * c * out_px, 0)
+        scratch = raw.clone()  # the plain version adds the bias in place
+
+        def kernel(raw=raw, bias=bias, pooled=pooled):
+            return ep.conv_epilogue(raw, bias, 0.1, pooled=pooled)
+
+        def plain(bias=bias, pooled=pooled, scratch=scratch):
+            return ep.conv_epilogue_plain(scratch, bias, 0.1, pooled=pooled)
+
+        rows.append({"layer": name, "shape": [EPILOGUE_N, c, h, w], "pooled": pooled,
+                     "ms": device_ms(kernel, "epilogue_kernel"), "bound_ms": b_ms,
+                     "plain_ms": time_ms(plain, 5), "library_ms": device_ms(plain)})
+        del raw, scratch
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    print(f"epilogue: the conv epilogue equal to its plain version (torch.equal) at the "
+          f"eFCN's seven conv outputs, N={EPILOGUE_N}, float32 and bf16 ({launches} launches); "
+          "device ms a call (bound, share of it; plain by events; the unfused passes' "
+          "device time): " + "; ".join(
+              f"{r['layer']} {r['ms']:.4f} ({r['bound_ms']:.4f}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%; {r['plain_ms']:.4f}; "
+              f"{r['library_ms']:.4f})" for r in rows)
+          + f"; sum {total['ms']:.4f} ms (bound {total['bound_ms']:.4f}, "
+          f"{100 * total['bound_ms'] / total['ms']:.1f}%; plain {total['plain_ms']:.4f}; "
+          f"unfused passes {total['library_ms']:.4f}); card {smi!r}", flush=True)
+    return {"name": "conv_epilogue", "route": "cuda",
+            "source": "async_ev_cnn_torch/csrc/conv_epilogue.cu", "replaces": None,
+            "max_abs_err": err, "bound_by": "bytes", **total,
+            "layers": rows}
 
 
 def gather_copy_phase(dev):
@@ -3320,6 +3399,7 @@ def main() -> int:
     from async_ev_cnn_torch.models import head
     from async_ev_cnn_torch.models.yolo import YoloEventTorch
     from async_ev_cnn_torch.ops import cuda_build
+    from async_ev_cnn_torch.ops import epilogue as ep
     from async_ev_cnn_torch.ops import integrate as it
     from async_ev_cnn_torch.ops import surface_scan as sc
     from async_ev_cnn_torch.ops.conv import set_matmul_precision
@@ -3346,7 +3426,7 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("surface_scan", "gather_gemm", "fused_stem", "gather_copy")
+    sources = ("surface_scan", "gather_gemm", "fused_stem", "gather_copy", "conv_epilogue")
     with ThreadPoolExecutor(max_workers=1) as pool:  # the host decoder beside them
         native_built = pool.submit(build_native)
         cuda_build.load_all(sources)  # one nvcc per source, started together
@@ -3491,6 +3571,7 @@ def main() -> int:
 
     # the main path: the counts are set to 0 just before it, read just after
     sc.reset_launches()
+    ep.reset_launches()
     torch.cuda.synchronize()
     warm = list(pipe.serve(items[:1]))  # first dispatch: cuDNN set-up
     t0 = time.perf_counter()
@@ -3498,12 +3579,16 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     main_launches = dict(sc.LAUNCHES)
+    main_epilogues = ep.LAUNCHES["conv_epilogue"]
     served = warm + rest
 
     require(len(served) == DISPATCHES, f"served {len(served)} of {DISPATCHES} dispatches")
-    # T=200 chunks is one window: K1 once per dispatch, K2 never
+    # T=200 chunks is one window: K1 once per dispatch, K2 never; the conv
+    # epilogue once after each of the eFCN's seven convs
     require(main_launches == scan_launches(events=DISPATCHES, tsmap=0),
             f"main path launches {main_launches} for {DISPATCHES} single-window dispatches")
+    require(main_epilogues == EPILOGUES * DISPATCHES,
+            f"main path launched {main_epilogues} conv epilogues for {DISPATCHES} dispatches")
     for r in served:
         boxes, probs = r.outputs
         require(boxes.shape == (T_CHUNKS, grid[0] * grid[1] * num_bbox, 4)
@@ -3528,23 +3613,28 @@ def main() -> int:
           f"({wall * 1e3 / (DISPATCHES - 1):.2f} ms/dispatch), dispatch latency "
           f"p50 {lat['dispatch_latency_ms']['p50']} ms over all {lat['n']}; "
           f"launches {main_launches} "
-          f"({main_launches['surface_scan_events'] / DISPATCHES:g} K1 per dispatch); "
+          f"({main_launches['surface_scan_events'] / DISPATCHES:g} K1 per dispatch), "
+          f"conv epilogue {main_epilogues} ({main_epilogues / DISPATCHES:g} per dispatch); "
           f"card {smi!r}", flush=True)
 
     # the ts-map engine's path: one full-width dispatch through K2, its
     # counts set to 0 just before it and read just after
     sc.reset_launches()
+    ep.reset_launches()
     st_t, out_t = model.net.scan_parallel(model.params, st0, c0, integrate_engine="tsmap")
     torch.cuda.synchronize()
     tsmap_launches = dict(sc.LAUNCHES)
     require(tsmap_launches == scan_launches(events=0, tsmap=1),
             f"ts-map path launches {tsmap_launches} for one single-window dispatch")
+    require(ep.LAUNCHES["conv_epilogue"] == EPILOGUES,
+            f"ts-map path launched {ep.LAUNCHES['conv_epilogue']} conv epilogues")
     require(bit_equal(st_t[0].surface, st_e[0].surface)
             and float((out_t - out_e).abs().max()) <= OUT_TOL,
             "ts-map engine's dispatch differs from the default engine's")
     print(f"tsmap-path: one {T_CHUNKS}-chunk dispatch through EventNetwork.scan_parallel("
           f"integrate_engine='tsmap'): surface bit-equal and outputs within {OUT_TOL} of "
-          f"the default engine's; launches {tsmap_launches}", flush=True)
+          f"the default engine's; launches {tsmap_launches}, conv epilogue "
+          f"{ep.LAUNCHES['conv_epilogue']}", flush=True)
 
     # ---- 5. card against CPU -------------------------------------------------
     t_small = 16
@@ -3592,6 +3682,8 @@ def main() -> int:
     rulebook_kernels = incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi)
     stem_kernel = stem_kernel_phase(dev, model, c0)
     gather_copy = gather_copy_phase(dev)
+    # phase 35 here: late in a long run the profiler's traces lose records
+    epilogue = {**epilogue_phase(dev, smi), "launches": main_epilogues}  # the main path's
     stem_path_phase(model, c0, smi)
     tier_phase(dev, args, layer_defs, num_classes, num_bbox, c0, smi)
     kwargs = yolo_kwargs(args, layer_defs, num_classes, num_bbox, dev)
@@ -3645,7 +3737,8 @@ def main() -> int:
         "mesh_launches": {
             "engine_scan_parallel": mesh["scan_launches"]["surface_scan_events_streams"],
             "mesh_pipeline": mesh["mesh"]["launches"]["surface_scan_events_streams"]}})
-    print(json.dumps({"kernels": kernels + rulebook_kernels + [stem_kernel, gather_copy]}))
+    print(json.dumps({"kernels": kernels + rulebook_kernels
+                      + [stem_kernel, gather_copy, epilogue]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

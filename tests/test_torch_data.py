@@ -396,12 +396,14 @@ def test_profiling_matches_jax(tmp_path, rng):
     ev = np.stack([rng.randint(0, 8, 64), rng.randint(0, 8, 64),
                    np.cumsum(rng.randint(1, 9, 64))], -1)
     chunks = pack_chunks(ev, 16, device="cpu")
-    names = ["intgr", "conv1", "pool1", "conv2", "TOTAL"]
-    for mode, fn, first in (("dense", tprof.profile_layers, "intgr"),
-                            ("full", tprof.profile_layers_parallel, "integrate")):
+    # 'full' runs conv1 and pool1 as one op: the conv and its pooled epilogue
+    for mode, fn, names in (
+            ("dense", tprof.profile_layers, ["intgr", "conv1", "pool1", "conv2", "TOTAL"]),
+            ("full", tprof.profile_layers_parallel,
+             ["integrate", "conv1+pool1 (epilogue)", "conv2", "TOTAL"])):
         net = EventNetwork(ld, 8, 8, 1e-3, padding="SAME", conv_mode=mode)
         rows = fn(net, params, chunks, reps=1, dispatches=1)
-        assert [r[0] for r in rows] == [first] + names[1:]
+        assert [r[0] for r in rows] == names
         assert rows[-1][1] > 0
     with tprof.trace(str(tmp_path / "tr")) as prof:
         torch.ones(3).sum()
