@@ -9,7 +9,9 @@ argmax there, flag unstable windows again, and emit every active window.
 The reference's quirk is kept: a recompute window that becomes stable is
 not cleared; only an event landing on it clears the flag.  Outputs are
 gathers at the stored indices over non-overlapping windows (``stride ==
-ksize``).  'full' mode is the dense pool of a 'full' predecessor.
+ksize``).  'full' mode is the dense pool of a 'full' predecessor, and
+takes a stride below the size too, with TF 'SAME' padding (darknet's
+size-2 stride-1 maxpool).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from typing import NamedTuple
 import torch
 
 from async_ev_cnn_torch.layers.types import LayerIO, PoolState
-from async_ev_cnn_torch.ops.masks import dilate_mask, pool_out_shape, window_view
+from async_ev_cnn_torch.ops.conv import conv_out_shape
+from async_ev_cnn_torch.ops.masks import dilate_mask, window_view
 from async_ev_cnn_torch.ops.pool import composite_argmax, maxpool_dense
 
 
@@ -31,16 +34,22 @@ class PoolSpec(NamedTuple):
     act_dtype: str = "float32"  # 'full'-mode activation storage (see ConvSpec)
 
     @property
+    def padding(self) -> str:
+        """'VALID', or TF 'SAME' (padded with the max's identity) for a
+        stride below the window, whose windows overlap ('full' only)."""
+        return "SAME" if self.stride < min(self.ksize) else "VALID"
+
+    @property
     def out_shape(self) -> tuple[int, int, int]:
         c, h, w = self.in_shape
-        oh, ow = pool_out_shape(h, w, self.ksize, self.stride)
+        oh, ow = conv_out_shape(h, w, *self.ksize, self.stride, self.padding)
         return (c, oh, ow)
 
 
 def _full_pool_io(spec: PoolSpec, prev_io: LayerIO) -> LayerIO:
     """Dense max over the *activated* map.  The leaky activation is
     monotone, so this equals the activated value at the window argmax."""
-    fm = maxpool_dense(prev_io.featuremap, spec.ksize, spec.stride, "VALID")
+    fm = maxpool_dense(prev_io.featuremap, spec.ksize, spec.stride, spec.padding)
     # a max over bf16 inputs is exact in bf16
     return LayerIO(surface=fm.to(getattr(torch, spec.act_dtype)), layer_actfn=None,
                    conv_actfn=None, mask=None)

@@ -13,6 +13,13 @@ Two engines run the same streaming semantics: the sequential one
 carrying its state from chunk to chunk and recomputing only the sites that
 events reach), and the parallel-in-time one (:meth:`EventNetwork.
 scan_parallel`, every conv/pool layer in 'full' mode).
+
+The port's DSL also describes a small graph, such as YOLOv3-tiny's
+(``utils/config``): ``route``, ``upsample`` and ``yolo`` layers, pools
+whose stride is below their size, and linear convs.  Only the parallel
+engine runs such a network (every layer 'full'): the sequential engine
+propagates events along a chain.  It then returns one grid per ``yolo``
+layer.
 """
 
 from __future__ import annotations
@@ -31,7 +38,13 @@ from async_ev_cnn_torch.layers.integration import (
     integration_step,
 )
 from async_ev_cnn_torch.layers.maxpool import PoolSpec, pool_init, pool_step
-from async_ev_cnn_torch.layers.types import EventChunk, IntegrationState, LayerIO
+from async_ev_cnn_torch.layers.types import (
+    ConvState,
+    EventChunk,
+    IntegrationState,
+    LayerIO,
+    PoolState,
+)
 from async_ev_cnn_torch.ops import epilogue, stem
 from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky, matmul_precision
 from async_ev_cnn_torch.ops.integrate import integrate_parallel
@@ -41,9 +54,44 @@ from async_ev_cnn_torch.utils.profiling import span
 
 
 class LayerDef(NamedTuple):
-    kind: str  # 'intgr' | 'conv' | 'pool' | 'fc' | 'flatten'
+    # 'intgr' | 'conv' | 'pool' | 'route' | 'upsample' | 'yolo' | 'fc' | 'flatten'
+    kind: str
     name: str
     spec: Any
+
+
+class RouteSpec(NamedTuple):
+    """The output of earlier layers: one, or several concatenated over
+    channels in the order given (darknet's ``route``)."""
+
+    sources: tuple[str, ...]
+    out_shape: tuple[int, int, int]
+    mode: str = "full"
+
+
+class UpsampleSpec(NamedTuple):
+    """Nearest-neighbour upsampling by ``factor`` (darknet's ``upsample``)."""
+
+    in_shape: tuple[int, int, int]
+    factor: int
+    mode: str = "full"
+
+    @property
+    def out_shape(self) -> tuple[int, int, int]:
+        c, h, w = self.in_shape
+        return (c, h * self.factor, w * self.factor)
+
+
+class YoloSpec(NamedTuple):
+    """A detection head: the grid of layer ``source`` is a network output."""
+
+    source: str
+    out_shape: tuple[int, int, int]
+    mode: str = "full"
+
+
+#: the layer kinds that only the parallel engine's graph walk runs
+GRAPH_KINDS = ("route", "upsample", "yolo")
 
 
 def build_layer_defs(
@@ -58,7 +106,11 @@ def build_layer_defs(
     window_frac: float = 0.25,
     activation_dtype: str = "float32",
 ) -> tuple[list[LayerDef], list[LayerDef]]:
-    """Returns ``(event_layers, dense_tail)``, as the JAX package does."""
+    """Returns ``(event_layers, dense_tail)``, as the JAX package does.
+
+    A ``route``, ``upsample`` or ``yolo`` layer, a pool whose stride is
+    below its size or a linear conv (module docstring) needs every layer
+    'full', and a network with ``yolo`` layers no dense tail."""
     modes = ("auto", "dense", "sparse", "sparse_pallas", "sparse_rows", "window", "full")
     if conv_mode not in modes:
         raise ValueError(f"conv_mode must be one of {modes}, got {conv_mode!r}")
@@ -85,8 +137,37 @@ def build_layer_defs(
     # are no longer maintained, so every layer downstream is 'full' too
     force_full = False
     layer_modes = getattr(layer_defs, "modes", {})
+    linear = getattr(layer_defs, "linear", set())
+    shapes = {}  # each layer's output shape, for the layers that name it
+    graph = []  # the layers that need every layer 'full'
+
+    def named(name, sources):
+        missing = [s for s in sources if s not in shapes]
+        if missing or not sources:
+            raise ValueError(f"layer {name}: no earlier layer named {missing or sources}")
+        return [shapes[s] for s in sources]
+
     for name, size in layer_defs.items():
-        if "conv" in name:
+        if "route" in name:
+            parts = named(name, size)
+            if len({p[1:] for p in parts}) > 1:
+                raise ValueError(f"layer {name}: routed maps differ in size: {parts}")
+            spec = RouteSpec(tuple(size), (sum(p[0] for p in parts), *parts[0][1:]))
+            event_layers.append(LayerDef("route", name, spec))
+            prev_shape = spec.out_shape
+            graph.append(name)
+        elif "upsample" in name:
+            spec = UpsampleSpec(prev_shape, int(size[0]))
+            event_layers.append(LayerDef("upsample", name, spec))
+            prev_shape = spec.out_shape
+            graph.append(name)
+        elif "yolo" in name:
+            if len(size) != 1:
+                raise ValueError(f"layer {name}: a yolo layer names one layer, got {size}")
+            spec = YoloSpec(size[0], named(name, size)[0])
+            event_layers.append(LayerDef("yolo", name, spec))
+            graph.append(name)
+        elif "conv" in name:
             kh, kw, cin, cout = size
             if cin != prev_shape[0]:
                 raise ValueError(
@@ -113,12 +194,15 @@ def build_layer_defs(
             else:
                 mode = layer_mode
             force_full = force_full or mode == "full"
+            if name in linear:
+                graph.append(name)
             spec = ConvSpec(
                 in_shape=prev_shape,
                 out_channels=cout,
                 ksize=(kh, kw),
                 stride=1,
-                alpha=alpha,
+                # leaky at alpha 1 is the identity, exactly
+                alpha=1.0 if name in linear else alpha,
                 padding=padding,
                 mode=mode,
                 capacity_frac=capacity_frac,
@@ -128,11 +212,16 @@ def build_layer_defs(
             event_layers.append(LayerDef("conv", name, spec))
             prev_shape = spec.out_shape
         elif "pool" in name:
+            # 'poolN=kh,kw' strides by kh; 'poolN=kh,kw,s' by s, and a stride
+            # below the window pads as TF 'SAME' (PoolSpec.padding)
             spec = PoolSpec(
-                in_shape=prev_shape, ksize=tuple(size), stride=size[0],
+                in_shape=prev_shape, ksize=tuple(size[:2]),
+                stride=size[2] if len(size) > 2 else size[0],
                 mode="full" if force_full else "event",
                 act_dtype=activation_dtype if force_full else "float32",
             )
+            if spec.padding == "SAME":
+                graph.append(name)
             event_layers.append(LayerDef("pool", name, spec))
             prev_shape = spec.out_shape
         elif "fc" in name:
@@ -141,7 +230,34 @@ def build_layer_defs(
             tail.append(LayerDef("flatten", name, None))
         else:
             raise ValueError(f"unknown layer kind in name {name!r}")
+        shapes[name] = prev_shape
+    incremental = [ld.name for ld in event_layers[1:]
+                   if ld.kind in ("conv", "pool") and ld.spec.mode != "full"]
+    if graph and incremental:
+        raise ValueError(
+            f"layers {graph} (route, upsample, yolo, an overlapping pool or a "
+            "linear conv) need every layer 'full': the incremental modes "
+            f"propagate events along a chain, and {incremental} are not 'full'")
+    if tail and any(ld.kind == "yolo" for ld in event_layers):
+        raise ValueError("a network with yolo layers takes no fc/flatten tail")
     return event_layers, tail
+
+
+def _io(fm: torch.Tensor) -> LayerIO:
+    """A 'full' layer's output: the activated map alone."""
+    return LayerIO(surface=fm, layer_actfn=None, conv_actfn=None, mask=None)
+
+
+def route(parts: list) -> torch.Tensor:
+    """A route's output: its one map, or its maps ``[(N,) C_i, H, W]``
+    concatenated over channels in order."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-3)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """``[(N,) C, H, W]`` -> ``[(N,) C, H * factor, W * factor]``, each value
+    repeated over a ``factor x factor`` block (exact in any dtype)."""
+    return x.repeat_interleave(factor, dim=-2).repeat_interleave(factor, dim=-1)
 
 
 def _validate_stem_fusion(stem_fusion):
@@ -193,12 +309,25 @@ class EventNetwork:
         self.out_shape = self.event_layers[-1].spec.out_shape
         self._stem_fusion = stem_fusion
         self._act_dtype = activation_dtype
+        # the outputs that a later route or head reads: the parallel walk
+        # keeps them until it returns
+        self._keep = frozenset(
+            src for ld in self.event_layers if ld.kind in ("route", "yolo")
+            for src in (ld.spec.sources if ld.kind == "route" else (ld.spec.source,)))
+        #: the yolo layers, whose grids the parallel engine returns in order
+        self.heads = tuple(ld.name for ld in self.event_layers if ld.kind == "yolo")
+        #: whether only the parallel engine's graph walk runs the network
+        self.is_graph = bool(getattr(layer_defs, "linear", None)) or any(
+            ld.kind in GRAPH_KINDS or ld.kind == "pool" and ld.spec.padding == "SAME"
+            for ld in self.event_layers)
         # conv+pool pairs the parallel path MAY run as one space-to-depth
         # conv: indices into event_layers[1:] of the conv whose following
-        # pool could fold in; whether they fuse is _fusion_active's call
+        # pool could fold in; whether they fuse is _fusion_active's call.
+        # A conv whose own output is kept is not fused: the pair never
+        # stores it
         pairs = [(i, c.spec, p.spec)
                  for i, (c, p) in enumerate(zip(self.event_layers[1:], self.event_layers[2:]))
-                 if c.kind == "conv" and p.kind == "pool"]
+                 if c.kind == "conv" and p.kind == "pool" and c.name not in self._keep]
         self._s2d_pairs = frozenset(
             i for i, c, p in pairs
             if stem.s2d_pair_applicable(c, p) and stem.s2d_pair_wins(c))
@@ -260,13 +389,21 @@ class EventNetwork:
         """Estimated live device bytes per time-batched chunk in
         :meth:`scan_parallel`: the widest adjacent producer/consumer
         activation pair plus two surface-sized arrays of the integrate
-        front half (the same model as the JAX package)."""
+        front half (the same model as the JAX package).  In a graph each
+        pair also holds the outputs kept for a later route or head, from
+        the layer that makes one to the walk's end; a head's grid is its
+        source's kept map."""
         ispec = self.event_layers[0].spec
         surface_px = ispec.channels * ispec.h * ispec.w
-        shapes = [surface_px] + [
-            int(prod(ld.spec.out_shape)) for ld in self.event_layers[1:]
-        ]
-        peak_pair = max(a + b for a, b in zip(shapes[:-1], shapes[1:]))
+        prev, prev_kept, kept, peak_pair = surface_px, False, 0, 0
+        for ld in self.event_layers[1:]:
+            if ld.kind == "yolo":
+                continue
+            out = int(prod(ld.spec.out_shape))
+            # the input, unless it is kept already, the output and the kept maps
+            peak_pair = max(peak_pair, (0 if prev_kept else prev) + out + kept)
+            prev, prev_kept = out, ld.name in self._keep
+            kept += out if prev_kept else 0
         return 4 * (2 * surface_px + peak_pair)
 
     def auto_window(self, t: int, budget_mb: float) -> int | None:
@@ -306,6 +443,18 @@ class EventNetwork:
         """Initial state for every layer on ``device`` (``cuda`` when not
         given; raises where there is none)."""
         dev = resolve_device(device)
+        if self.is_all_full:
+            # every layer is 'full' and stateless: the placeholders that
+            # conv_init and pool_init give a 'full' layer (none for a route,
+            # upsample or yolo layer), without their forward of the surface
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            flag = torch.zeros((), dtype=torch.bool, device=dev)
+            index = torch.zeros((), dtype=torch.int32, device=dev)
+            st, _ = integration_init(self.event_layers[0].spec, dev)
+            return (st,) + tuple(
+                ConvState(zero, zero.clone()) if ld.kind == "conv"
+                else PoolState(index.clone(), flag.clone()) if ld.kind == "pool" else ()
+                for ld in self.event_layers[1:])
         states = []
         prev_io = None
         for ld in self.event_layers:
@@ -342,7 +491,13 @@ class EventNetwork:
         state and every layer's output.  ``upto`` truncates the chain after
         that many layers: the index is INCLUSIVE over ``event_layers``
         (``upto=0`` runs the integration layer only), unlike
-        :meth:`full_frame_forward`'s exclusive one, as in the JAX package."""
+        :meth:`full_frame_forward`'s exclusive one, as in the JAX package.
+        A graph (:attr:`is_graph`) is refused: this engine runs a chain."""
+        if self.is_graph:
+            raise ValueError(
+                "the sequential engine runs a chain of layers; a network with route, "
+                "upsample, yolo, overlapping-pool or linear layers runs in "
+                "scan_parallel (every layer 'full')")
         states = []
         ios: "OrderedDict[str, LayerIO]" = OrderedDict()
         delta_leak = None
@@ -394,18 +549,21 @@ class EventNetwork:
         chain: ``frame`` is one f32 ``[C, H, W]`` surface or a batch
         ``[N, C, H, W]`` (the time-batched leg of :meth:`scan_parallel`,
         where the JAX package vmaps over T).  Returns the YOLO-grid output
-        ``[(N,) h, w, c]``.  ``upto`` truncates after that many conv/pool
-        layers and returns the truncated featuremap (EXCLUSIVE over the
+        ``[(N,) h, w, c]``, or for a network with ``yolo`` layers a tuple of
+        their grids, in order.  ``upto`` truncates after that many layers
+        and returns the truncated featuremap (EXCLUSIVE over the
         post-integration layers, as in the JAX package).  A pair of
         :meth:`_fused_pairs` runs as one space-to-depth conv ('s2d') or as
         cuDNN's conv and one pooled epilogue (bias, activation and pool,
         :mod:`~async_ev_cnn_torch.ops.epilogue`), unless ``upto`` cuts
-        inside it; the pair's span is the conv's."""
+        inside it; the pair's span is the conv's.  A graph's walk keeps
+        the outputs that a later route or head reads until it returns."""
         with span("scan.conv_stack"):
             # surface >= 0, so featuremap == surface: no activation mask
             io = LayerIO(surface=frame, layer_actfn=None, conv_actfn=None, mask=None)
             layers, states = self.event_layers[1:], state[1:]
             fused = self._fused_pairs()
+            kept, grids = {}, []
             i = 0
             while i < len(layers):
                 if upto is not None and i >= upto:
@@ -420,29 +578,33 @@ class EventNetwork:
                         # one cast at the pair's pooled output: the float32
                         # conv output is never stored
                         act = getattr(torch, layers[i + 1].spec.act_dtype)
-                        io = LayerIO(surface=fm.to(act), layer_actfn=None,
-                                     conv_actfn=None, mask=None)
-                        i += 2
-                        continue
-                    if pair == "epilogue":
-                        fm = epilogue.conv_epilogue(
+                        io = _io(fm.to(act))
+                    elif pair == "epilogue":
+                        io = _io(epilogue.conv_epilogue(
                             conv2d_dense(self._conv_input(ld, io).featuremap,
                                          params[f"w_{ld.name}"], None, ld.spec.stride,
                                          ld.spec.padding),
                             params[f"b_{ld.name}"], ld.spec.alpha, ld.spec.act_dtype,
-                            pooled=True)
-                        io = LayerIO(surface=fm, layer_actfn=None, conv_actfn=None, mask=None)
-                        i += 2
-                        continue
-                    if ld.kind == "conv":
+                            pooled=True))
+                    elif ld.kind == "conv":
                         _, io = conv_step(ld.spec, params[f"w_{ld.name}"],
                                           params[f"b_{ld.name}"], st,
                                           self._conv_input(ld, io), 0.0)
-                    else:
+                    elif ld.kind == "pool":
                         _, io = pool_step(ld.spec, st, io, 0.0)
-                i += 1
+                    elif ld.kind == "route":
+                        io = _io(route([kept[name] for name in ld.spec.sources]))
+                    elif ld.kind == "upsample":
+                        io = _io(upsample_nearest(io.featuremap, ld.spec.factor))
+                    else:  # yolo: the network's outputs are float32
+                        grids.append(kept[ld.spec.source].movedim(-3, -1).float())
+                i += 2 if pair else 1
+                if layers[i - 1].name in self._keep:
+                    kept[layers[i - 1].name] = io.featuremap
             if upto is not None:
                 return io.featuremap
+            if self.heads:
+                return tuple(grids)
             with span("layer.tail"):
                 return self.apply_tail(params, io.featuremap.movedim(-3, -1))
 
@@ -483,7 +645,8 @@ class EventNetwork:
         the window budget is the whole dispatch's, as under ``vmap``.
 
         Returns ``(new_state, outputs [T, ...])`` (``[S, T, ...]`` with a
-        stream axis, each stream equal to a call of its own).
+        stream axis, each stream equal to a call of its own); a network with
+        ``yolo`` layers gives a tuple of such grids, one a head.
         """
         if not self.is_all_full:
             bad = [
@@ -513,10 +676,19 @@ class EventNetwork:
             # the conv stack runs once over every frame of the window
             frames = surfaces.flatten(0, 1) if streams else surfaces
             out = self.full_frame_forward(params, state, frames)
-            outs.append(out.unflatten(0, surfaces.shape[:2]) if streams else out)
+            if streams:
+                lead = surfaces.shape[:2]
+                out = (tuple(o.unflatten(0, lead) for o in out) if isinstance(out, tuple)
+                       else out.unflatten(0, lead))
+            outs.append(out)
             # clone: a view would keep the window's whole surface stack alive
             surf, pts = surfaces.select(tax, -1).clone(), last_ts.select(tax, -1).clone()
-        outs = outs[0] if len(outs) == 1 else torch.cat(outs, dim=tax)
+        if len(outs) == 1:
+            outs = outs[0]
+        elif isinstance(outs[0], tuple):  # a graph's grids, each along time
+            outs = tuple(torch.cat(parts, dim=tax) for parts in zip(*outs))
+        else:
+            outs = torch.cat(outs, dim=tax)
         return (IntegrationState(surf, pts),) + tuple(state[1:]), outs
 
 

@@ -4,11 +4,16 @@ Counterpart of ``async_ev_cnn_tpu/models/head.py``: grid-cell offsets,
 sqrt-encoded width/height and the ``[h_cells, w_cells, C + B*5]`` output
 contract.  Runs on the tensor's device; leading batch axes broadcast, so
 one call decodes every frame of a dispatch.
+
+:func:`decode_yolov3` is the port's own: YOLOv3's anchor decode (Redmon &
+Farhadi 2018, darknet's ``yolo`` layer) over the grids of several heads.
 """
 
 from __future__ import annotations
 
 import torch
+
+from async_ev_cnn_torch.utils.profiling import span
 
 
 def convert_bboxes(bboxes, grid_h: int, grid_w: int, h_image: int, w_image: int,
@@ -49,3 +54,42 @@ def decode(grid_out, num_classes: int, num_bbox: int, h_image: int,
     scores = conf.reshape(*lead, -1)
     probs = (cls[..., None, :] * conf[..., None]).reshape(*lead, -1, num_classes)
     return boxes, scores, probs
+
+
+def decode_yolov3(grids, anchors, masks, h_image: int, w_image: int):
+    """Decode YOLOv3 heads into detections, on the grids' device.
+
+    ``grids`` are the heads' ``[..., gh, gw, A * (5 + C)]`` outputs,
+    anchor-major over the last axis (darknet's channel order); ``anchors``
+    the ``(w, h)`` anchor sizes in input pixels and ``masks`` the anchors
+    of each head (``A`` each).  A cell's box is centred at ``((col +
+    sigmoid(tx)) / gw * w_image, (row + sigmoid(ty)) / gh * h_image)``
+    with size ``(exp(tw) * aw, exp(th) * ah)`` pixels; its objectness is
+    ``sigmoid(to)`` and each class score ``sigmoid(tc)`` times it.
+
+    Returns ``(boxes [..., N, 4]`` centre x, centre y, width, height in
+    pixels, ``scores [..., N]``, ``class_probs [..., N, C])`` with the
+    heads in order and each head's boxes by row, column and anchor:
+    ``N = sum(gh * gw * A)``.
+    """
+    boxes, scores, probs = [], [], []
+    with span("head.yolo"):
+        for grid, mask in zip(grids, masks):
+            g = torch.as_tensor(grid, dtype=torch.float32)
+            lead, (gh, gw) = g.shape[:-3], g.shape[-3:-1]
+            p = g.reshape(*lead, gh, gw, len(mask), -1)
+            col = torch.arange(gw, dtype=torch.float32, device=g.device).reshape(gw, 1)
+            row = torch.arange(gh, dtype=torch.float32, device=g.device).reshape(gh, 1, 1)
+            xy = torch.sigmoid(p[..., :2])
+            # the anchor sizes are Python scalars: no tensor crosses to the card
+            wh = torch.stack([torch.stack([p[..., a, 2].exp() * anchors[m][0],
+                                           p[..., a, 3].exp() * anchors[m][1]], dim=-1)
+                              for a, m in enumerate(mask)], dim=-2)
+            obj = torch.sigmoid(p[..., 4])
+            boxes.append(torch.stack([(xy[..., 0] + col) / gw * w_image,
+                                      (xy[..., 1] + row) / gh * h_image,
+                                      wh[..., 0], wh[..., 1]], dim=-1).reshape(*lead, -1, 4))
+            scores.append(obj.reshape(*lead, -1))
+            cls = torch.sigmoid(p[..., 5:]) * obj[..., None]
+            probs.append(cls.reshape(*lead, -1, cls.shape[-1]))
+        return torch.cat(boxes, dim=-2), torch.cat(scores, dim=-1), torch.cat(probs, dim=-2)

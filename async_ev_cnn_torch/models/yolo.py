@@ -30,7 +30,7 @@ from async_ev_cnn_torch.layers.types import EventChunk
 from async_ev_cnn_torch.ops.conv import tf_same_pads
 from async_ev_cnn_torch.utils.checkpoint import load_params, normalize_names
 from async_ev_cnn_torch.utils.device import resolve_device
-from async_ev_cnn_torch.utils.weights import params_from_jax
+from async_ev_cnn_torch.utils.weights import fold_batchnorm, params_from_jax
 
 
 class _YoloBase:
@@ -124,7 +124,9 @@ class _TorchYolo(_YoloBase):
         super().__init__(*args, **kwargs)
 
     def _convert(self, params) -> dict:
-        return params_from_jax(params, self._device)
+        # a checkpoint in darknet's form (batch-norm statistics beside a
+        # conv's kernel) is folded into kernels and biases at load
+        return fold_batchnorm(params_from_jax(params, self._device))
 
     @property
     def device(self):

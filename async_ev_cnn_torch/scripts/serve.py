@@ -13,7 +13,9 @@ network state flows across file boundaries, and every dispatch carries
 exactly ``--serve_chunks`` chunks a stream (short tails padded with exact
 no-op chunks).  Events cross to the card in the smallest wire tier they
 fit (``--serve_wire``, 'auto' by default).  ``--out`` decodes the YOLO head
-on the card and writes host-NMS'd detections as JSON lines; ``--serve_state
+on the card and writes host-NMS'd detections as JSON lines (a DSL with
+``yolo`` layers, such as ``configs/yolov3_tiny_event.yml``, decodes its heads
+with ``--yolo_anchors`` and ``--yolo_masks``); ``--serve_state
 path.npz`` writes the mid-stream network state at exit and restores it at
 start, so a restarted deployment continues its streams' surfaces bit for
 bit.  Prints one JSON stats line.
@@ -36,7 +38,8 @@ import numpy as np
 
 from async_ev_cnn_torch.data import detection_reader
 from async_ev_cnn_torch.models.yolo import YoloEventTorch
-from async_ev_cnn_torch.utils.config import config
+from async_ev_cnn_torch.utils.config import build_parser, config, int_groups
+from async_ev_cnn_torch.utils.profiling import span
 from async_ev_cnn_torch.utils.transforms import data_transform
 
 #: the config names of the event network, all served by YoloEventTorch
@@ -85,38 +88,53 @@ def _stream_items(reader, args, streams, capacity, t_chunks):
             yield s, take
 
 
+def _parser() -> argparse.ArgumentParser:
+    """The shared flags and the YOLOv3 heads' own (a DSL's ``yolo``
+    layers), which a YAML file may set as well."""
+    p = build_parser()
+    p.add_argument("--yolo_anchors", type=str, default=None,
+                   help="YOLOv3 heads: anchor sizes in input pixels, "
+                        "'w,h w,h ...' (darknet's anchors).")
+    p.add_argument("--yolo_masks", type=str, default=None,
+                   help="YOLOv3 heads: the anchors of each yolo layer, in "
+                        "the DSL's order, 'i,j,k i,j,k' (darknet's mask).")
+    return p
+
+
 def _write_detections(fh, res, args, dispatch_idx, streams):
-    """Host NMS + JSONL for one retired dispatch's decoded boxes.
-    Zero-count chunks (``res.counts``) are exact no-op padding steps
-    whose outputs repeat the previous surface — skipped, or a padded
-    short tail would write duplicate phantom detection rows."""
+    """Host NMS + JSONL for one retired dispatch's decoded boxes; returns
+    the rows written.  Zero-count chunks (``res.counts``) are exact no-op
+    padding steps whose outputs repeat the previous surface — skipped, or a
+    padded short tail would write duplicate phantom detection rows.  Runs
+    in a ``serve.out`` span, the dispatch's."""
     from async_ev_cnn_torch.utils.nms import nms
 
-    boxes, probs = (a.cpu().numpy() for a in res.outputs)
-    counts = np.asarray(res.counts)
-    # leading axes: [T, ...] or [S, T, ...]
-    if streams == 1:
-        boxes, probs, counts = boxes[None], probs[None], counts[None]
-    n_written = 0
-    for s in range(boxes.shape[0]):
-        for t in range(boxes.shape[1]):
-            if counts[s, t] == 0:
-                continue
-            conf = probs[s, t].max(axis=-1)
-            cls = probs[s, t].argmax(axis=-1)
-            keepable = conf >= args.conf_threshold
-            if not keepable.any():
-                continue
-            keep = nms(boxes[s, t], conf, valid=keepable, iou_threshold=0.5)
-            for k in keep:
-                fh.write(json.dumps({
-                    "dispatch": dispatch_idx, "stream": s, "chunk": t,
-                    "bbox_xywh": [round(float(v), 2) for v in boxes[s, t, k]],
-                    "score": round(float(conf[k]), 4),
-                    "class": int(cls[k]),
-                }) + "\n")
-                n_written += 1
-    return n_written
+    with span("serve.out", dispatch_idx):
+        boxes, probs = (a.cpu().numpy() for a in res.outputs)
+        counts = np.asarray(res.counts)
+        # leading axes: [T, ...] or [S, T, ...]
+        if streams == 1:
+            boxes, probs, counts = boxes[None], probs[None], counts[None]
+        n_written = 0
+        for s in range(boxes.shape[0]):
+            for t in range(boxes.shape[1]):
+                if counts[s, t] == 0:
+                    continue
+                conf = probs[s, t].max(axis=-1)
+                cls = probs[s, t].argmax(axis=-1)
+                keepable = conf >= args.conf_threshold
+                if not keepable.any():
+                    continue
+                keep = nms(boxes[s, t], conf, valid=keepable, iou_threshold=0.5)
+                for k in keep:
+                    fh.write(json.dumps({
+                        "dispatch": dispatch_idx, "stream": s, "chunk": t,
+                        "bbox_xywh": [round(float(v), 2) for v in boxes[s, t, k]],
+                        "score": round(float(conf[k]), 4),
+                        "class": int(cls[k]),
+                    }) + "\n")
+                    n_written += 1
+        return n_written
 
 
 def main(argv=None):
@@ -124,7 +142,7 @@ def main(argv=None):
     pre.add_argument("--device", default=None,
                      help="torch device; the card ('cuda') when not given")
     dev_args, rest = pre.parse_known_args(argv)
-    args = config(rest)
+    args = config(rest, _parser())
 
     from async_ev_cnn_torch.models import head
     from async_ev_cnn_torch.ops.conv import set_matmul_precision
@@ -170,7 +188,17 @@ def main(argv=None):
     num_classes = reader.num_classes()
 
     post = None
-    if args.out:
+    if args.out and model.net.heads:
+        if not (args.yolo_anchors and args.yolo_masks):
+            raise SystemExit("--out with yolo layers decodes with --yolo_anchors "
+                             "and --yolo_masks")
+        anchors, masks = int_groups(args.yolo_anchors), int_groups(args.yolo_masks)
+
+        def post(outs):  # the YOLOv3 heads, decoded together
+            boxes, _, probs = head.decode_yolov3(outs, anchors, masks,
+                                                 args.frame_h, args.frame_w)
+            return boxes, probs
+    elif args.out:
         def post(outs):
             # only boxes and class probs cross back to the host: the
             # decoded probs already carry the box confidence

@@ -6,6 +6,24 @@ parity with the reference's configargparse setup (its
 ``src/scripts/config.py``): ``-c <yaml>`` plus flag overrides, the
 ``conv1=3,3,1,16 pool1=2,2 …`` layer DSL (config.py:6-12), and the same
 flag set — without the configargparse dependency (plain argparse + pyyaml).
+
+The port's DSL adds the tokens of a two-scale detector such as YOLOv3-tiny
+(darknet's ``cfg/yolov3-tiny.cfg``), which the 'full' engine runs as a
+small graph (:mod:`async_ev_cnn_torch.layers.network`):
+
+* ``pool11=2,2,1``: a pool of size 2 x 2 and stride 1; a stride below the
+  size pads as TF 'SAME' (right and bottom, with the max's identity);
+* ``conv15=1,1,512,255@linear``: a conv without the leaky activation
+  (``@linear`` may follow a conv mode: ``@full@linear``);
+* ``route17=conv13``: the output of an earlier layer, or
+  ``route20=upsample19,conv8`` the channel concatenation of several, in
+  that order;
+* ``upsample19=2``: nearest-neighbour upsampling by 2;
+* ``yolo16=conv15``: a detection head's grid, one network output per
+  ``yolo`` layer.
+
+``route`` and ``yolo`` items name layers; every other item's dims are
+integers.
 """
 
 from __future__ import annotations
@@ -17,16 +35,24 @@ from collections import OrderedDict
 import yaml
 
 
+#: the activation suffix of a conv without the leaky activation
+LINEAR = "linear"
+#: layer kinds whose dims name earlier layers
+_NAMED_DIMS = ("route", "yolo")
+
+
 class LayerDSL(OrderedDict):
     """Ordered layer-definition dict with optional per-layer conv modes.
 
     ``modes`` maps layer name -> conv execution mode for layers annotated
-    with ``@mode`` in the DSL (e.g. ``conv1=3,3,1,16@window``).
+    with ``@mode`` in the DSL (e.g. ``conv1=3,3,1,16@window``);
+    ``linear`` holds the convs annotated ``@linear``.
     """
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.modes: dict = {}
+        self.linear: set = set()
 
 
 def layers_dict(text: str) -> "LayerDSL":
@@ -34,7 +60,8 @@ def layers_dict(text: str) -> "LayerDSL":
 
     Matches config.py:6-12 (space-separated ``name=dims`` items, dims
     comma-separated ints) plus an optional per-layer conv execution mode
-    suffix: ``conv1=3,3,1,16@window``.
+    suffix: ``conv1=3,3,1,16@window``, an ``@linear`` suffix, and the
+    ``route``/``yolo`` items whose dims are layer names (module docstring).
     """
     try:
         out = LayerDSL()
@@ -49,10 +76,15 @@ def layers_dict(text: str) -> "LayerDSL":
                     f"layer item {item!r} has no '=' (expected "
                     "'name=h,w,i,o')"
                 )
-            dims, _, mode = dims.partition("@")
-            out[name] = [int(d) for d in dims.split(",")] if dims else []
-            if mode:
-                out.modes[name] = mode
+            dims, *suffixes = dims.split("@")
+            named = any(kind in name for kind in _NAMED_DIMS)
+            out[name] = ([d if named else int(d) for d in dims.split(",")]
+                         if dims else [])
+            for suffix in suffixes:
+                if suffix == LINEAR:
+                    out.linear.add(name)
+                elif suffix:
+                    out.modes[name] = suffix
         return out
     except ValueError as e:
         raise argparse.ArgumentTypeError(
@@ -64,10 +96,18 @@ def layers_dict(text: str) -> "LayerDSL":
 def layers_dsl(layer_defs: "OrderedDict[str, list[int]]") -> str:
     """Inverse of :func:`layers_dict`."""
     modes = getattr(layer_defs, "modes", {})
+    linear = getattr(layer_defs, "linear", set())
     return " ".join(
         f"{k}={','.join(map(str, v))}" + (f"@{modes[k]}" if k in modes else "")
+        + (f"@{LINEAR}" if k in linear else "")
         for k, v in layer_defs.items()
     )
+
+
+def int_groups(text: str) -> list[list[int]]:
+    """``'10,14 23,27'`` -> ``[[10, 14], [23, 27]]``: the form of the serve
+    CLI's ``--yolo_anchors`` and ``--yolo_masks``."""
+    return [[int(v) for v in group.split(",")] for group in text.split()]
 
 
 def boolean(v: str) -> bool:
@@ -210,9 +250,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def config(argv=None) -> argparse.Namespace:
-    """Parse a config: YAML file values are defaults, CLI flags override."""
-    parser = build_parser()
+def config(argv=None, parser: argparse.ArgumentParser | None = None) -> argparse.Namespace:
+    """Parse a config: YAML file values are defaults, CLI flags override.
+    ``parser`` (default :func:`build_parser`'s) may carry a CLI's own
+    flags, which its YAML files may then set."""
+    parser = parser or build_parser()
     args, _ = parser.parse_known_args(argv)
     if args.config:
         with open(args.config) as f:

@@ -130,7 +130,8 @@ class StreamingPipeline:
     ``streams / n_data`` streams, ``streams >= 2`` and divisible by the
     data axis; ``device`` is then the mesh's.  ``postprocess`` is applied
     to each dispatch's ``[T, ...]`` (``[S, T, ...]``, the rank's streams
-    on a mesh) network outputs on the device.
+    on a mesh) network outputs on the device: one grid, or the tuple of a
+    network with ``yolo`` layers.
     """
 
     def __init__(self, net, params, *, capacity=256, window=None,
@@ -518,7 +519,9 @@ class StreamingPipeline:
         with span("serve.post"):
             post = self._post(outs)
         # tiny checksum for retirement syncs: one scalar fetch proves it
-        return st, post, outs.mean(), self._completion()
+        # (a graph's last head is enqueued after every other output)
+        chk = (outs[-1] if isinstance(outs, tuple) else outs).mean()
+        return st, post, chk, self._completion()
 
     def serve(self, source: Iterable) -> Iterator[DispatchResult]:
         """Drive the pipeline over ``source`` — host ``[N, >=3]`` event
