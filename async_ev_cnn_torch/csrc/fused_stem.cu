@@ -3,8 +3,10 @@
 //
 // Replaces examples/pallas_stem_negative.py::fused_stem (_stem_kernel), a
 // measured alternative to the library stem that the JAX package keeps
-// beside it (not on its path).  x: f32 [T, H, W] (H, W even); w: f32
-// [9, O] taps, dy-major; bias: f32 [O] -> out: f32 [T, O, H/2, W/2].
+// beside it (not on its path).  In the port it runs every 'full' network's
+// one-channel stem pair on the card (layers/network.py: the eFCN's conv1
+// -> pool1, YOLOv3-tiny's conv0 -> pool1).  x: f32 [T, H, W] (H, W even);
+// w: f32 [9, O] taps, dy-major; bias: f32 [O] -> out: f32 [T, O, H/2, W/2].
 //
 // The direct stem writes the [T, O, H, W] conv output to device memory and
 // reads it back for the pool (459 MB each way at T=200, 160x224, O=16);
@@ -13,22 +15,32 @@
 // (31 us of FFMA at 67 TFLOP/s): bytes, with the FFMA issue close behind,
 // so the design spends as few instructions as it can per output:
 //
-//   * one rounding per tap: acc = b, then acc = fma(x, w, acc) tap by tap,
-//     dy-major, as the TPU kernel orders its (separately rounded) adds.
-//     An explicit fma is fused whatever --fmad says.  The plain version in
-//     ops/fused_stem.py rounds product and sum apart, so the two differ by
-//     a few ulps (chip_smoke.py states the tolerance), not bit for bit;
-//   * the taps and bias live in __constant__ memory, copied there on the
-//     caller's stream before the launch, so no weight is loaded from
-//     shared or device memory in the loop; the channel loop is unrolled
-//     with O a template argument (the eFCN's 16; any other O <= kMaxO
-//     takes the generic instance, a runtime loop);
-//   * pool, then activate: for 0 <= alpha <= 1, where(v > 0, v, alpha * v)
-//     equals max(v, alpha * v) and is monotone under round-to-nearest, so
-//     the activation of the 2x2 max is the max of the activations: two
-//     instructions a pooled pixel instead of twelve.  Any other alpha keeps
-//     the TPU kernel's order (an instance of its own, picked on the host:
-//     no branch in the loop);
+//   * one rounding per tap: acc = 0, then acc = fma(x, w, acc) tap by tap,
+//     dy-major, and the bias added after the 2x2 max, in one rounded add:
+//     the roundings of the library stem, cuDNN's conv followed by the
+//     pooled epilogue (csrc/conv_epilogue.cu), so the two agree bit for
+//     bit wherever cuDNN sums the nine taps in that order (on the H100 at
+//     every shape tried; tests/test_torch_conv_epilogue_chip.py holds a
+//     served dispatch to the unfused layers).  An explicit fma is fused
+//     whatever --fmad says.  The plain version in
+//     ops/fused_stem.py keeps the TPU kernel's order (acc = b first,
+//     product and sum rounded apart), so the two differ by a few ulps
+//     (chip_smoke.py states the tolerance), not bit for bit;
+//   * the taps and bias go to the kernel by value, in a __grid_constant__
+//     parameter struct (StemWeights: 9 * kMaxO + kMaxO floats, 2,560 B,
+//     under the 4 KB of a launch's parameters), so they sit in the
+//     constant bank with no copy before the launch and no weight is loaded
+//     from shared or device memory in the loop; the channel loop is
+//     unrolled with O a template argument (the eFCN's and YOLOv3-tiny's
+//     16; any other O <= kMaxO takes the generic instance, a runtime loop);
+//   * pool, then add the bias and activate: for 0 <= alpha <= 1,
+//     where(v > 0, v, alpha * v) equals max(v, alpha * v), and it and the
+//     bias add are monotone under round-to-nearest, so the activation of
+//     the 2x2 max is the max of the activations: three instructions a
+//     pooled pixel instead of sixteen.  Any other alpha keeps the TPU
+//     kernel's order, bias and activation on each conv value before the
+//     max (an instance of its own, picked on the host: no branch in the
+//     loop);
 //   * each thread owns 2x2 pooled pixels: a 6x6 input patch in registers
 //     (one float4 and one float2 shared-memory read a row), 16 conv values
 //     a channel, two float2 stores a channel, so the per-channel cost of
@@ -45,14 +57,15 @@
 //     computes.  4-byte copies: TMA would need the row stride a multiple
 //     of 16 bytes, and W need only be even.
 //
-// The taps' __constant__ block is one per process: two calls on two
-// streams at once would race on it.  Calls on one stream are ordered (the
-// port launches every kernel on the current stream).
+// Each launch carries its own weights, so calls on any streams are
+// independent of one another.  The caller hands the taps and bias over
+// from host memory: the struct is filled on the host at the launch.
 //
 // Built by async_ev_cnn_torch/ops/cuda_build.py; bound with ctypes by
 // async_ev_cnn_torch/ops/fused_stem.py, whose STEM_* constants are these.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -60,11 +73,15 @@ namespace {
 constexpr int kBand = 8;               // pooled rows a tile
 constexpr int kThreads = 224;          // 7 warps: a 224-wide tile's items
 constexpr int kRows = 2 * kBand + 2;   // staged input rows with the halo
-constexpr int kMaxO = 64;              // output channels the constant block holds
+constexpr int kMaxO = 64;              // output channels the parameter struct holds
 constexpr int kSmemLimit = 232448;     // shared memory one block of the H100 may use
 
-__constant__ float c_taps[9 * kMaxO];  // [9, o_len], dy-major
-__constant__ float c_bias[kMaxO];
+// the weights of a launch, passed by value: taps [9, o_len] dy-major, then
+// the bias; the entries past o_len are unused
+struct StemWeights {
+  float taps[9 * kMaxO];
+  float bias[kMaxO];
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -115,9 +132,9 @@ __device__ __forceinline__ void stage_tile(float* s, const float* __restrict__ x
   }
 }
 
-// one output channel of a thread's 2x2 pooled pixels: 16 conv values,
-// the 2x2 maxes, the activation, the stores (row 1 only where the band
-// has it, column 1 only where the frame has it)
+// one output channel of a thread's 2x2 pooled pixels: 16 conv sums, the
+// 2x2 maxes, the bias and the activation, the stores (row 1 only where
+// the band has it, column 1 only where the frame has it)
 template <bool kPoolFirst>
 __device__ __forceinline__ void channel(const float (&v)[6][6], const float* taps, float b,
                                         float alpha, float* dst, int wp, bool vec, bool pair,
@@ -126,7 +143,7 @@ __device__ __forceinline__ void channel(const float (&v)[6][6], const float* tap
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = b;
+    for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
@@ -145,11 +162,11 @@ __device__ __forceinline__ void channel(const float (&v)[6][6], const float* tap
       const float p00 = acc[2 * i][2 * j], p01 = acc[2 * i][2 * j + 1];
       const float p10 = acc[2 * i + 1][2 * j], p11 = acc[2 * i + 1][2 * j + 1];
       if constexpr (kPoolFirst) {  // 0 <= alpha <= 1
-        const float mx = fmaxf(fmaxf(p00, p01), fmaxf(p10, p11));
+        const float mx = __fadd_rn(fmaxf(fmaxf(p00, p01), fmaxf(p10, p11)), b);
         m[i][j] = fmaxf(mx, __fmul_rn(alpha, mx));
       } else {
-        m[i][j] = fmaxf(fmaxf(leaky(p00, alpha), leaky(p01, alpha)),
-                        fmaxf(leaky(p10, alpha), leaky(p11, alpha)));
+        m[i][j] = fmaxf(fmaxf(leaky(__fadd_rn(p00, b), alpha), leaky(__fadd_rn(p01, b), alpha)),
+                        fmaxf(leaky(__fadd_rn(p10, b), alpha), leaky(__fadd_rn(p11, b), alpha)));
       }
     }
 #pragma unroll
@@ -169,8 +186,9 @@ __device__ __forceinline__ void channel(const float (&v)[6][6], const float* tap
 // offsets; kO == 0: any O <= kMaxO, a runtime loop
 template <int kO, bool kPoolFirst>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_stem_kernel(const float* __restrict__ x, float* __restrict__ out, int t_len, int h,
-                  int wd, int o_rt, int n_bands, float alpha) {
+fused_stem_kernel(const __grid_constant__ StemWeights wts, const float* __restrict__ x,
+                  float* __restrict__ out, int t_len, int h, int wd, int o_rt, int n_bands,
+                  float alpha) {
   extern __shared__ __align__(16) float smem[];  // [2][kRows][sw]
   const int o_len = kO > 0 ? kO : o_rt;
   const int hp = h / 2, wp = wd / 2;
@@ -225,8 +243,8 @@ fused_stem_kernel(const float* __restrict__ x, float* __restrict__ out, int t_le
         for (int o = 0; o < kO; ++o) {
           float taps[9];
 #pragma unroll
-          for (int j = 0; j < 9; ++j) taps[j] = c_taps[j * kO + o];
-          channel<kPoolFirst>(v, taps, c_bias[o], alpha, dst, wp, even_wp, pair, row2);
+          for (int j = 0; j < 9; ++j) taps[j] = wts.taps[j * kO + o];
+          channel<kPoolFirst>(v, taps, wts.bias[o], alpha, dst, wp, even_wp, pair, row2);
           dst += plane;
         }
       } else {
@@ -234,8 +252,8 @@ fused_stem_kernel(const float* __restrict__ x, float* __restrict__ out, int t_le
         for (int o = 0; o < o_len; ++o) {
           float taps[9];
 #pragma unroll
-          for (int j = 0; j < 9; ++j) taps[j] = c_taps[j * o_len + o];
-          channel<kPoolFirst>(v, taps, c_bias[o], alpha, dst, wp, even_wp, pair, row2);
+          for (int j = 0; j < 9; ++j) taps[j] = wts.taps[j * o_len + o];
+          channel<kPoolFirst>(v, taps, wts.bias[o], alpha, dst, wp, even_wp, pair, row2);
           dst += plane;
         }
       }
@@ -245,8 +263,8 @@ fused_stem_kernel(const float* __restrict__ x, float* __restrict__ out, int t_le
 }
 
 template <int kO, bool kPoolFirst>
-int launch(const float* x, float* out, int t_len, int h, int wd, int o_len, float alpha,
-           cudaStream_t stream) {
+int launch(const StemWeights& wts, const float* x, float* out, int t_len, int h, int wd,
+           int o_len, float alpha, cudaStream_t stream) {
   auto kernel = fused_stem_kernel<kO, kPoolFirst>;
   const int smem = static_cast<int>(sizeof(float)) * 2 * kRows * stage_width(wd);
   if (smem > 48 * 1024) {
@@ -266,18 +284,18 @@ int launch(const float* x, float* out, int t_len, int h, int wd, int o_len, floa
   const long long n_tiles = static_cast<long long>(t_len) * n_bands;
   const int grid = static_cast<int>(n_tiles < static_cast<long long>(sms) * per_sm
                                         ? n_tiles : static_cast<long long>(sms) * per_sm);
-  kernel<<<grid, kThreads, smem, stream>>>(x, out, t_len, h, wd, o_len, n_bands, alpha);
+  kernel<<<grid, kThreads, smem, stream>>>(wts, x, out, t_len, h, wd, o_len, n_bands, alpha);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C interface, bound with ctypes; returns a CUDA error code (0 = success).
-// x: f32 [t_len, h, wd] (h, wd even); w: f32 [9, o_len]; bias: f32 [o_len];
-// out: f32 [t_len, o_len, h / 2, wd / 2], all on the device.  The taps and
-// bias are copied into the constant block on `stream`, then the kernel
-// runs on it.  Refuses o_len outside 1..kMaxO, a tile count past int32,
-// and a width whose two stages exceed a block's shared memory.
+// x: f32 [t_len, h, wd] (h, wd even) and out: f32 [t_len, o_len, h / 2,
+// wd / 2] on the device; w: f32 [9, o_len] and bias: f32 [o_len] in host
+// memory, copied into the launch's parameters.  The kernel runs on
+// `stream`.  Refuses o_len outside 1..kMaxO, a tile count past int32, and
+// a width whose two stages exceed a block's shared memory.
 extern "C" int fused_stem(const float* x, const float* w, const float* bias, float* out,
                           int t_len, int h, int wd, int o_len, float alpha,
                           cudaStream_t stream) {
@@ -285,16 +303,13 @@ extern "C" int fused_stem(const float* x, const float* w, const float* bias, flo
       static_cast<long long>(t_len) * ((h / 2 + kBand - 1) / kBand) > 0x7fffffffLL - (1 << 20) ||
       static_cast<long long>(sizeof(float)) * 2 * kRows * stage_width(wd) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemcpyToSymbolAsync(c_taps, w, sizeof(float) * 9 * o_len, 0,
-                                            cudaMemcpyDeviceToDevice, stream);
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbolAsync(c_bias, bias, sizeof(float) * o_len, 0,
-                                  cudaMemcpyDeviceToDevice, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  StemWeights wts{};
+  std::memcpy(wts.taps, w, sizeof(float) * 9 * o_len);
+  std::memcpy(wts.bias, bias, sizeof(float) * o_len);
   const bool pool_first = alpha >= 0.0f && alpha <= 1.0f;  // false for a NaN alpha
   if (o_len == 16)
-    return (pool_first ? launch<16, true> : launch<16, false>)(x, out, t_len, h, wd, o_len,
-                                                                alpha, stream);
-  return (pool_first ? launch<0, true> : launch<0, false>)(x, out, t_len, h, wd, o_len, alpha,
-                                                            stream);
+    return (pool_first ? launch<16, true> : launch<16, false>)(wts, x, out, t_len, h, wd,
+                                                                o_len, alpha, stream);
+  return (pool_first ? launch<0, true> : launch<0, false>)(wts, x, out, t_len, h, wd, o_len,
+                                                            alpha, stream);
 }

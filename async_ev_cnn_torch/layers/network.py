@@ -45,7 +45,7 @@ from async_ev_cnn_torch.layers.types import (
     LayerIO,
     PoolState,
 )
-from async_ev_cnn_torch.ops import epilogue, stem
+from async_ev_cnn_torch.ops import epilogue, fused_stem, stem
 from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky, matmul_precision
 from async_ev_cnn_torch.ops.integrate import integrate_parallel
 from async_ev_cnn_torch.ops.pool import maxpool_dense
@@ -260,6 +260,14 @@ def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.repeat_interleave(factor, dim=-2).repeat_interleave(factor, dim=-1)
 
 
+def needs_grad(frame: torch.Tensor, params) -> bool:
+    """Whether a forward of ``frame`` with ``params`` builds a graph for
+    autograd: grad mode is on and the frame or a parameter requires grad."""
+    return torch.is_grad_enabled() and (
+        frame.requires_grad or any(getattr(p, "requires_grad", False)
+                                   for p in params.values()))
+
+
 def _validate_stem_fusion(stem_fusion):
     """Identity checks, as in the JAX package (1 == True must not pass)."""
     if not (stem_fusion is True or stem_fusion is False
@@ -335,6 +343,14 @@ class EventNetwork:
         # (ops.epilogue.conv_epilogue, pooled), where no s2d fusion does
         self._epilogue_pairs = frozenset(
             i for i, c, p in pairs if epilogue.pair_fuses(c, p))
+        # of those, the one-channel stems that K6 (ops.fused_stem) runs as
+        # one launch on the card where no gradient is needed (_fused_pairs)
+        self._stem_pairs = frozenset(
+            i for i, c, p in pairs
+            if i in self._epilogue_pairs and fused_stem.pair_applicable(c, p))
+        #: K6's taps and bias in host memory, a stem conv's name to
+        #: ``ops.fused_stem.host_weights``' entry
+        self._stem_weights: dict = {}
         #: per conv layer of the sequential engine: host reads of device
         #: flags (``host_syncs``), ``dense_fallbacks`` and
         #: ``kernel_launches`` since the last :meth:`reset_counts`
@@ -373,15 +389,34 @@ class EventNetwork:
                     and self._act_dtype == "float32")
         return False
 
-    def _fused_pairs(self) -> dict[int, str]:
+    def _fused_pairs(self, device=None, grad: bool = False) -> dict[int, str]:
         """The conv+pool pairs :meth:`full_frame_forward` runs as one op at
         this call, by the conv's index into ``event_layers[1:]``: 's2d' (one
-        space-to-depth conv, where :meth:`_fusion_active`) or 'epilogue'
-        (cuDNN's conv and one pooled epilogue)."""
+        space-to-depth conv, where :meth:`_fusion_active`), 'stem' (K6: the
+        conv, bias, activation and pool of a one-channel stem in one launch,
+        where the tensors are on a card ``device`` and no gradient is
+        needed, ``grad`` False: :func:`needs_grad`) or 'epilogue' (cuDNN's
+        conv and one pooled epilogue)."""
         pairs = dict.fromkeys(self._epilogue_pairs, "epilogue")
+        if self._stem_pairs and not grad and device is not None and (
+                torch.device(device).type == "cuda"):
+            pairs.update(dict.fromkeys(self._stem_pairs, "stem"))
         if self._s2d_pairs and self._fusion_active():
             pairs.update(dict.fromkeys(self._s2d_pairs, "s2d"))
         return pairs
+
+    def _pooled_pair(self, pair: str, ld: LayerDef, params, x: torch.Tensor) -> torch.Tensor:
+        """The float32 pooled map of conv ``ld`` and its pool over ``x``
+        ``[(N,) C, H, W]``: one space-to-depth conv ('s2d') or one K6
+        launch ('stem').  A method of its own, so that no name in the walk
+        keeps the map alive once the next layer has replaced it."""
+        w, b = params[f"w_{ld.name}"], params[f"b_{ld.name}"]
+        if pair == "s2d":
+            return stem.fused_conv_pool(x, w, b, ld.spec.alpha)
+        taps, bias = fused_stem.host_weights(self._stem_weights, ld.name, w, b)
+        fm = fused_stem.fused_stem(x.float().reshape(-1, *x.shape[-2:]).contiguous(), taps,
+                                   bias, ld.spec.alpha)
+        return fm.reshape(*x.shape[:-3], *fm.shape[-3:])
 
     # ---- memory model for the parallel-in-time path ---------------------
 
@@ -553,8 +588,9 @@ class EventNetwork:
         their grids, in order.  ``upto`` truncates after that many layers
         and returns the truncated featuremap (EXCLUSIVE over the
         post-integration layers, as in the JAX package).  A pair of
-        :meth:`_fused_pairs` runs as one space-to-depth conv ('s2d') or as
-        cuDNN's conv and one pooled epilogue (bias, activation and pool,
+        :meth:`_fused_pairs` runs as one space-to-depth conv ('s2d'), as K6
+        (:mod:`~async_ev_cnn_torch.ops.fused_stem`, 'stem') or as cuDNN's
+        conv and one pooled epilogue (bias, activation and pool,
         :mod:`~async_ev_cnn_torch.ops.epilogue`), unless ``upto`` cuts
         inside it; the pair's span is the conv's.  A graph's walk keeps
         the outputs that a later route or head reads until it returns."""
@@ -562,7 +598,8 @@ class EventNetwork:
             # surface >= 0, so featuremap == surface: no activation mask
             io = LayerIO(surface=frame, layer_actfn=None, conv_actfn=None, mask=None)
             layers, states = self.event_layers[1:], state[1:]
-            fused = self._fused_pairs()
+            fused = self._fused_pairs(
+                frame.device, bool(self._stem_pairs) and needs_grad(frame, params))
             kept, grids = {}, []
             i = 0
             while i < len(layers):
@@ -571,14 +608,12 @@ class EventNetwork:
                 ld, st = layers[i], states[i]
                 pair = fused.get(i) if upto is None or upto >= i + 2 else None
                 with span(self._spans[ld.name]):
-                    if pair == "s2d":
-                        fm = stem.fused_conv_pool(self._conv_input(ld, io).featuremap,
-                                                  params[f"w_{ld.name}"],
-                                                  params[f"b_{ld.name}"], ld.spec.alpha)
+                    if pair in ("s2d", "stem"):
                         # one cast at the pair's pooled output: the float32
                         # conv output is never stored
                         act = getattr(torch, layers[i + 1].spec.act_dtype)
-                        io = _io(fm.to(act))
+                        io = _io(self._pooled_pair(pair, ld, params,
+                                                   self._conv_input(ld, io).featuremap).to(act))
                     elif pair == "epilogue":
                         io = _io(epilogue.conv_epilogue(
                             conv2d_dense(self._conv_input(ld, io).featuremap,

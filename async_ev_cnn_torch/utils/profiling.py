@@ -244,6 +244,7 @@ def profile_layers_parallel(net, params, chunks, reps: int = 3, dispatches: int 
     conv+pool pair the forward fuses is one row, as it runs as one op.
 
     Returns ``[(name, ms_per_dispatch_marginal), ..., ('TOTAL', ms)]``."""
+    from async_ev_cnn_torch.layers.network import needs_grad
     from async_ev_cnn_torch.ops.integrate import integrate_parallel
 
     if not net.is_all_full:
@@ -264,10 +265,10 @@ def profile_layers_parallel(net, params, chunks, reps: int = 3, dispatches: int 
         return _best_ms(run, device, reps) / dispatches
 
     names = ["integrate"] + [ld.name for ld in net.event_layers[1:]]
-    # conv+pool pairs the forward runs as ONE op (a space-to-depth conv, or
-    # a conv and its pooled epilogue) must be probed as one row: cutting
+    # conv+pool pairs the forward runs as ONE op (a space-to-depth conv,
+    # K6, or a conv and its pooled epilogue) must be probed as one row: cutting
     # between them would time an unfused conv that the path never runs
-    fused = net._fused_pairs()
+    fused = net._fused_pairs(device, needs_grad(chunks.y, params))
     probes = []
     k = 0
     while k < len(names):

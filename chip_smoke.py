@@ -94,13 +94,18 @@ paths, and the precision options:
     then its path, the 'sparse_rows' update of one chunk through K5
     (kernel_rows_conv_pair) at every layer, within the same tolerance
     of rows_conv_pair (counts set to 0 just before, read just after);
-14. K6 (fused_stem) on the T=200 surfaces of a full-width dispatch (its
-    path: one call, counted), within K6_TOL * (1 + max |plain|) of its
-    plain version and bit-equal across two launches, within 1e-5 of
-    fused_conv_pool and of the direct 'full' conv1 -> pool1 at 'highest';
-    the same at its edge shapes (K6_EDGES: T = 1, H/2 not a multiple of
-    the band, W/2 odd, O = 1 and 64, alpha < 0 and > 1, the library stems
-    where alpha <= 1); the device times of all four;
+14. K6 (fused_stem) on the T=200 surfaces of a full-width dispatch,
+    within K6_TOL * (1 + max |plain|) of its plain version and bit-equal
+    across two launches and to the network's stem (full_frame_forward's
+    conv1 -> pool1, which runs K6), within K6_TOL * (1 + max |library|) of
+    the library stem (cuDNN's conv and the pooled epilogue) and 1e-5 of
+    fused_conv_pool at 'highest'; the same at its edge shapes (K6_EDGES:
+    T = 1, H/2 not a multiple of the band, W/2 odd, O = 1 and 64, alpha < 0
+    and > 1, the library stems where alpha <= 1); the device times of all
+    four; then K6 against the library stem at a served dispatch's 1,024
+    frames, the eFCN's 160x224 and YOLOv3-tiny's 416x416 (K6_DISPATCHES):
+    within K6_TOL * (1 + max |library|), and the device time of both
+    beside K6's bound;
 15. K7 (gather_copy): each shape and kh against its plain version at grid
     4, 2 copies, bit for bit; then its path, the slope table of all 12
     (shape, kh) rows (counted): µs a copy, µs a row, GB/s and its share of
@@ -274,7 +279,7 @@ result line.  K1's to K6's ``ms`` are their device time per call from
 torch.profiler (K1's: the binning pass and the scan, also with a stream
 axis; K3's, K4's and K5's:
 the gather-GEMM kernel plus, where the plan splits the reduction, its
-split pass; K6's: the kernel and the two copies of its taps into constant
+split pass; K6's: the kernel, its weights passed by value from host
 memory; ``call_ms`` beside it is the event-timed wall time of a wrapper
 call, which the host's launch overhead sets at these sizes), K7's a
 CUDA-event time, and ``dense_pair_ms`` the device time of the dense conv
@@ -343,13 +348,13 @@ TIER_GATE_STEPS = 200
 # calls a trace of named kernels runs ahead of the ones it counts (device_ms)
 TRACE_LEAD = 4
 # K6 against its plain version: |kernel - plain| <= K6_TOL * (1 + max|plain|).
-# The kernel rounds each of its 9 taps once (an FMA) where the plain
-# version rounds product and sum apart, so a conv value moves by at most
-# half an ulp of each product and of each partial sum: 19 half-ulps of the
-# largest term of the chain, about 1.1e-6 of it, and far less in practice
-# (the roundings are independent); the 2x2 max and the activation add no
-# error of their own (monotone for 0 <= alpha <= 1; the same order
-# otherwise).
+# The kernel rounds each of its 9 taps once (an FMA, from zero) and adds
+# the bias last, where the plain version starts from the bias and rounds
+# product and sum apart, so a conv value moves by at most half an ulp of
+# each product and of each partial sum: 19 half-ulps of the largest term
+# of the chain, about 1.1e-6 of it, and far less in practice (the
+# roundings are independent); the 2x2 max and the activation add no error
+# of their own (monotone for 0 <= alpha <= 1; the same order otherwise).
 K6_TOL = 1e-6
 # K6's edge shapes: (what, T, H, W, O, alpha).  The band is 8 pooled rows
 # and a thread takes 2x2 pooled pixels; O = 16 is the unrolled instance,
@@ -364,6 +369,10 @@ K6_EDGES = (
     ("H/2=5 W/2=1 O=7 alpha<0", 3, 10, 2, 7, -0.2),
     ("H/2=10 W/2=13 O=16 alpha>1", 2, 20, 26, 16, 1.5),
 )
+# K6 where the serving path runs it: the stems of a served dispatch of
+# 1,024 frames (16 streams x 64 chunks), (what, N, H, W, O)
+K6_DISPATCHES = (("efcn 160x224", 1024, 160, 224, 16),
+                 ("yolov3-tiny 416x416", 1024, 416, 416, 16))
 
 
 def scan_launches(events: int = 0, streams: int = 0, tsmap: int = 0) -> dict:
@@ -1212,7 +1221,7 @@ def k6_check(x, taps, bias, alpha, what: str) -> float:
     from async_ev_cnn_torch.ops import fused_stem as tf
 
     got, again = tf.fused_stem(x, taps, bias, alpha), tf.fused_stem(x, taps, bias, alpha)
-    want = tf.fused_stem_plain(x, taps, bias, alpha)
+    want = tf.fused_stem_plain(x, taps.to(x.device), bias.to(x.device), alpha)
     torch.cuda.synchronize()
     require(bit_equal(got, again), f"K6 at {what}: two launches on the same inputs differ")
     err = float((got - want).abs().max())
@@ -1221,11 +1230,54 @@ def k6_check(x, taps, bias, alpha, what: str) -> float:
     return err
 
 
+def library_stem(x, kernel, bias, alpha):
+    """The library stem: cuDNN's conv and the pooled epilogue (bias, leaky
+    and the 2x2 pool in one pass), the path of a pair K6 does not take."""
+    from async_ev_cnn_torch.ops import conv as tconv
+    from async_ev_cnn_torch.ops import epilogue as ep
+
+    return ep.conv_epilogue(tconv.conv2d_dense(x, kernel, None, 1, "SAME"), bias, alpha,
+                            pooled=True)
+
+
+def stem_dispatch_times(dev) -> list:
+    """K6 at K6_DISPATCHES against the library stem: within K6_TOL * (1 +
+    max |library|), the device time of both and K6's bound."""
+    from async_ev_cnn_torch.ops import fused_stem as tf
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(14)
+    for what, n, h, w, o in K6_DISPATCHES:
+        x = torch.rand(n, h, w, generator=g, device=dev) * (
+            torch.rand(n, h, w, generator=g, device=dev) < 0.2)
+        kernel = torch.randn(o, 1, 3, 3, generator=g, device=dev) * 0.3
+        bias = torch.randn(o, generator=g, device=dev) * 0.1
+        taps, b_host = tf.w_taps_from_oihw(kernel).cpu(), bias.cpu()
+        got = tf.fused_stem(x, taps, b_host, 0.1)
+        lib = library_stem(x[:, None], kernel, bias, 0.1)
+        torch.cuda.synchronize()
+        err = float((got - lib).abs().max())
+        tol = K6_TOL * (1 + float(lib.abs().max()))
+        require(err <= tol, f"K6 at {what} differs from the library stem by {err} > {tol}")
+        del got, lib
+        b_ms, b_by = bound_ms(4 * (n * h * w + n * o * (h // 2) * (w // 2)),
+                              2 * 9 * n * o * h * w)
+        rows.append({"what": what, "shape": [n, h, w, o], "max_abs_err": err,
+                     "ms": device_ms(lambda: tf.fused_stem(x, taps, b_host, 0.1), iters=10),
+                     "library_ms": device_ms(lambda: library_stem(x[:, None], kernel, bias, 0.1),
+                                             iters=5),
+                     "bound_ms": b_ms, "bound_by": b_by})
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def stem_kernel_phase(dev, model, c0):
     """Phase 14: K6 on the T=200 surfaces of a full-width dispatch, against
-    its plain version, fused_conv_pool and the direct conv1 -> pool1, then
-    at its edge shapes (K6_EDGES).  Returns K6's entry of the kernels' JSON
-    line."""
+    its plain version, the network's stem, the library stem and
+    fused_conv_pool, then at its edge shapes (K6_EDGES) and at a served
+    dispatch's stems (K6_DISPATCHES).  Returns K6's entry of the kernels'
+    JSON line, less its launches, which are the main path's."""
     from async_ev_cnn_torch.ops import conv as tconv
     from async_ev_cnn_torch.ops import fused_stem as tf
     from async_ev_cnn_torch.ops import pool as tpool
@@ -1236,21 +1288,23 @@ def stem_kernel_phase(dev, model, c0):
     surfaces, _ = integrate_parallel(st0[0].surface, st0[0].prev_ts, c0, LEAK)
     x = surfaces[:, 0].contiguous()                                  # [T, H, W]
     w1, b1 = model.params["w_conv1"], model.params["b_conv1"].float().contiguous()
-    taps = tf.w_taps_from_oihw(w1)
-    # the path: one fused stem over the dispatch's surfaces
+    # the weights as the path passes them: by value, from host memory
+    taps, b1_host = tf.w_taps_from_oihw(w1).cpu(), b1.cpu()
+    got = tf.fused_stem(x, taps, b1_host, 0.1)
+    err = k6_check(x, taps, b1_host, 0.1, "full width")
     tf.reset_launches()
-    got = tf.fused_stem(x, taps, b1, 0.1)
+    path = model.net.full_frame_forward(model.params, st0, surfaces, upto=2)
     torch.cuda.synchronize()
-    launches = tf.LAUNCHES["fused_stem"]
-    require(launches == 1, f"K6's path launched {launches} times")
-    err = k6_check(x, taps, b1, 0.1, "full width")
+    require(tf.LAUNCHES["fused_stem"] == 1 and bit_equal(path, got),
+            f"the network's stem launched K6 {tf.LAUNCHES['fused_stem']} times, or differs "
+            "from K6's own call")
     fused = tstem.fused_conv_pool(surfaces, w1, b1, 0.1)
-    direct = model.net.full_frame_forward(model.params, st0, surfaces, upto=2)
+    lib = library_stem(surfaces, w1, b1, 0.1)
     torch.cuda.synchronize()
     err_f = float((got - fused).abs().max())
-    err_d = float((got - direct).abs().max())
-    require(err_f <= 1e-5 and err_d <= 1e-5,
-            f"K6 differs from fused_conv_pool by {err_f}, from the direct stem by {err_d}")
+    err_d = float((got - lib).abs().max())
+    require(err_f <= 1e-5 and err_d <= K6_TOL * (1 + float(lib.abs().max())),
+            f"K6 differs from fused_conv_pool by {err_f}, from the library stem by {err_d}")
     # the edge shapes, each against the plain version, a second launch and
     # both library stems
     rng = np.random.RandomState(13)
@@ -1262,10 +1316,10 @@ def stem_kernel_phase(dev, model, c0):
         e_err = k6_check(xe, tf.w_taps_from_oihw(ke), be, alpha, what)
         if alpha <= 1:  # the library stems' max(x, alpha * x) is the same activation
             got_e = tf.fused_stem(xe, tf.w_taps_from_oihw(ke), be, alpha)
-            lib = (tstem.fused_conv_pool(xe[:, None], ke, be, alpha),
-                   tpool.maxpool_dense(tconv.leaky(tconv.conv2d_dense(
-                       xe[:, None], ke, be, 1, "SAME"), alpha), (2, 2), 2))
-            lib_err = max(float((got_e - y).abs().max()) for y in lib)
+            lib_e = (tstem.fused_conv_pool(xe[:, None], ke, be, alpha),
+                     tpool.maxpool_dense(tconv.leaky(tconv.conv2d_dense(
+                         xe[:, None], ke, be, 1, "SAME"), alpha), (2, 2), 2))
+            lib_err = max(float((got_e - y).abs().max()) for y in lib_e)
             require(lib_err <= 1e-5, f"K6 at {what} differs from the library stems by {lib_err}")
         edges.append(f"{what} (T={t_e} {h_e}x{w_e} O={o_e} alpha={alpha}) {e_err:.2e}")
         err = max(err, e_err)
@@ -1273,43 +1327,49 @@ def stem_kernel_phase(dev, model, c0):
     o = taps.shape[1]
 
     def call():
-        return tf.fused_stem(x, taps, b1, 0.1)
+        return tf.fused_stem(x, taps, b1_host, 0.1)
 
     times = {
-        # a call's device time: the kernel and the taps' two copies into
-        # its constant block
+        # a call's device time: the kernel alone (its weights travel as
+        # launch parameters)
         "ms": device_ms(call),
         "kernel_ms": device_ms(call, "fused_stem_kernel"),
         "call_ms": time_ms(call, 50),
-        "plain_ms": time_ms(lambda: tf.fused_stem_plain(x, taps, b1, 0.1), 3),
-        "library_ms": device_ms(lambda: model.net.full_frame_forward(
-            model.params, st0, surfaces, upto=2)),
+        "plain_ms": time_ms(lambda: tf.fused_stem_plain(x, taps.to(dev), b1, 0.1), 3),
+        "library_ms": device_ms(lambda: library_stem(surfaces, w1, b1, 0.1)),
         "fused_conv_pool_ms": device_ms(lambda: tstem.fused_conv_pool(surfaces, w1, b1, 0.1)),
     }
     b_ms, b_by = bound_ms(4 * (t * h * w + 10 * o + t * o * (h // 2) * (w // 2)),
                           2 * 9 * t * o * h * w)
+    dispatches = stem_dispatch_times(dev)
     print(f"stem-kernel: K6 over the {t} surfaces of a dispatch (C=1 {h}x{w}, O={o}): "
-          f"within {K6_TOL} * (1 + max|plain|) of its plain version and bit-equal across two "
-          f"launches (max abs err {err:.2e} over the dispatch and the edges: "
-          + "; ".join(edges) + f"), within {err_f:.2e} of fused_conv_pool and "
-          f"{err_d:.2e} of the direct 'full' conv1 -> pool1 (the edges with alpha <= 1 within "
-          "1e-5 of both); "
+          f"within {K6_TOL} * (1 + max|plain|) of its plain version, bit-equal across two "
+          f"launches and to the network's stem (max abs err {err:.2e} over the dispatch and "
+          "the edges: " + "; ".join(edges) + f"), within {err_f:.2e} of fused_conv_pool and "
+          f"{err_d:.2e} of the library stem (cuDNN's conv and the pooled epilogue; the edges "
+          "with alpha <= 1 within 1e-5 of both library stems); "
           f"K6 device {times['ms']:.4f} ms a call (kernel {times['kernel_ms']:.4f}, a call by "
-          f"events {times['call_ms']:.4f}; plain {times['plain_ms']:.3f}, direct stem device "
+          f"events {times['call_ms']:.4f}; plain {times['plain_ms']:.3f}, library stem device "
           f"{times['library_ms']:.4f}, fused_conv_pool device "
-          f"{times['fused_conv_pool_ms']:.4f}, bound {b_ms:.5f} {b_by}); launches "
-          f"{launches}", flush=True)
+          f"{times['fused_conv_pool_ms']:.4f}, bound {b_ms:.5f} {b_by}); a served dispatch's "
+          "stems (device ms: K6, library, K6's bound): " + "; ".join(
+              f"{r['what']} N={r['shape'][0]} {r['ms']:.4f}, {r['library_ms']:.4f}, "
+              f"{r['bound_ms']:.4f} {r['bound_by']} (err {r['max_abs_err']:.2e})"
+              for r in dispatches), flush=True)
     return {"name": "fused_stem", "route": "cuda",
             "source": "async_ev_cnn_torch/csrc/fused_stem.cu",
-            "replaces": "examples/pallas_stem_negative.py:74", "launches": launches,
-            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, **times}
+            "replaces": "examples/pallas_stem_negative.py:74",
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, **times,
+            "dispatches": dispatches}
 
 
 # the eFCN's conv outputs in one served dispatch of the benchmark's replay
 # cell (16 streams x 64 chunks = 1,024 frames): (name, C, H, W, pooled)
 EPILOGUE_N = 1024
-# conv epilogue launches a dispatch of the eFCN: one after each conv
-EPILOGUES = 7
+# conv epilogue launches a dispatch of the eFCN: one after each conv but
+# conv1, whose pair with pool1 runs as the fused stem K6, once a dispatch
+EPILOGUES = 6
+STEMS = 1
 EPILOGUE_LAYERS = (
     ("conv1", 16, 160, 224, True), ("conv2", 32, 80, 112, True),
     ("conv3", 64, 40, 56, True), ("conv4", 128, 20, 28, True),
@@ -3400,6 +3460,7 @@ def main() -> int:
     from async_ev_cnn_torch.models.yolo import YoloEventTorch
     from async_ev_cnn_torch.ops import cuda_build
     from async_ev_cnn_torch.ops import epilogue as ep
+    from async_ev_cnn_torch.ops import fused_stem as tfs
     from async_ev_cnn_torch.ops import integrate as it
     from async_ev_cnn_torch.ops import surface_scan as sc
     from async_ev_cnn_torch.ops.conv import set_matmul_precision
@@ -3572,6 +3633,7 @@ def main() -> int:
     # the main path: the counts are set to 0 just before it, read just after
     sc.reset_launches()
     ep.reset_launches()
+    tfs.reset_launches()
     torch.cuda.synchronize()
     warm = list(pipe.serve(items[:1]))  # first dispatch: cuDNN set-up
     t0 = time.perf_counter()
@@ -3580,15 +3642,19 @@ def main() -> int:
     wall = time.perf_counter() - t0
     main_launches = dict(sc.LAUNCHES)
     main_epilogues = ep.LAUNCHES["conv_epilogue"]
+    main_stems = tfs.LAUNCHES["fused_stem"]
     served = warm + rest
 
     require(len(served) == DISPATCHES, f"served {len(served)} of {DISPATCHES} dispatches")
-    # T=200 chunks is one window: K1 once per dispatch, K2 never; the conv
-    # epilogue once after each of the eFCN's seven convs
+    # T=200 chunks is one window: K1 once per dispatch, K2 never; K6 once
+    # (conv1 -> pool1) and the conv epilogue after each of the six convs
+    # after it
     require(main_launches == scan_launches(events=DISPATCHES, tsmap=0),
             f"main path launches {main_launches} for {DISPATCHES} single-window dispatches")
     require(main_epilogues == EPILOGUES * DISPATCHES,
             f"main path launched {main_epilogues} conv epilogues for {DISPATCHES} dispatches")
+    require(main_stems == STEMS * DISPATCHES,
+            f"main path launched K6 {main_stems} times for {DISPATCHES} dispatches")
     for r in served:
         boxes, probs = r.outputs
         require(boxes.shape == (T_CHUNKS, grid[0] * grid[1] * num_bbox, 4)
@@ -3614,27 +3680,30 @@ def main() -> int:
           f"p50 {lat['dispatch_latency_ms']['p50']} ms over all {lat['n']}; "
           f"launches {main_launches} "
           f"({main_launches['surface_scan_events'] / DISPATCHES:g} K1 per dispatch), "
-          f"conv epilogue {main_epilogues} ({main_epilogues / DISPATCHES:g} per dispatch); "
-          f"card {smi!r}", flush=True)
+          f"conv epilogue {main_epilogues} ({main_epilogues / DISPATCHES:g} per dispatch), "
+          f"K6 {main_stems} ({main_stems / DISPATCHES:g} per dispatch); card {smi!r}",
+          flush=True)
 
     # the ts-map engine's path: one full-width dispatch through K2, its
     # counts set to 0 just before it and read just after
     sc.reset_launches()
     ep.reset_launches()
+    tfs.reset_launches()
     st_t, out_t = model.net.scan_parallel(model.params, st0, c0, integrate_engine="tsmap")
     torch.cuda.synchronize()
     tsmap_launches = dict(sc.LAUNCHES)
     require(tsmap_launches == scan_launches(events=0, tsmap=1),
             f"ts-map path launches {tsmap_launches} for one single-window dispatch")
-    require(ep.LAUNCHES["conv_epilogue"] == EPILOGUES,
-            f"ts-map path launched {ep.LAUNCHES['conv_epilogue']} conv epilogues")
+    require(ep.LAUNCHES["conv_epilogue"] == EPILOGUES and tfs.LAUNCHES["fused_stem"] == STEMS,
+            f"ts-map path launched {ep.LAUNCHES['conv_epilogue']} conv epilogues and K6 "
+            f"{tfs.LAUNCHES['fused_stem']} times")
     require(bit_equal(st_t[0].surface, st_e[0].surface)
             and float((out_t - out_e).abs().max()) <= OUT_TOL,
             "ts-map engine's dispatch differs from the default engine's")
     print(f"tsmap-path: one {T_CHUNKS}-chunk dispatch through EventNetwork.scan_parallel("
           f"integrate_engine='tsmap'): surface bit-equal and outputs within {OUT_TOL} of "
           f"the default engine's; launches {tsmap_launches}, conv epilogue "
-          f"{ep.LAUNCHES['conv_epilogue']}", flush=True)
+          f"{ep.LAUNCHES['conv_epilogue']}, K6 {tfs.LAUNCHES['fused_stem']}", flush=True)
 
     # ---- 5. card against CPU -------------------------------------------------
     t_small = 16
@@ -3680,7 +3749,8 @@ def main() -> int:
           flush=True)
 
     rulebook_kernels = incremental_phases(dev, args, layer_defs, num_classes, num_bbox, smi)
-    stem_kernel = stem_kernel_phase(dev, model, c0)
+    # K6's launches are the main path's, as K1's are
+    stem_kernel = {**stem_kernel_phase(dev, model, c0), "launches": main_stems}
     gather_copy = gather_copy_phase(dev)
     # phase 35 here: late in a long run the profiler's traces lose records
     epilogue = {**epilogue_phase(dev, smi), "launches": main_epilogues}  # the main path's

@@ -3,8 +3,12 @@ plain version at the eFCN's seven conv outputs, its launches on the
 parallel path, and a served dispatch against the unfused layers.
 
 The kernel pools the raw conv output before the bias and the activation,
-which is exact for 0 < alpha <= 1 (ops/epilogue.py), so each comparison is
-``torch.equal``: value for value, a zero's sign aside.
+which is exact for 0 < alpha <= 1 (ops/epilogue.py), so each comparison of
+the kernel is ``torch.equal``: value for value, a zero's sign aside.  On
+the parallel path conv1 -> pool1 runs as the fused stem K6 instead
+(tests/test_torch_stem_route_chip.py), which rounds as cuDNN's conv and
+the pooled epilogue do, so a served dispatch is still the unfused layers'
+output value for value.
 
 No JAX here: the card's machine has none, so run it there without the
 tests' conftest:
@@ -17,7 +21,7 @@ import pytest
 import torch
 
 from async_ev_cnn_torch.layers.network import EventNetwork
-from async_ev_cnn_torch.ops import epilogue
+from async_ev_cnn_torch.ops import epilogue, fused_stem
 from async_ev_cnn_torch.ops.conv import set_matmul_precision
 from async_ev_cnn_torch.utils.config import layers_dict
 
@@ -78,15 +82,21 @@ def test_one_forward_of_the_efcn_launches_seven_epilogues_and_a_step_none(card):
     state = net.init_state(params, card)
     frames = torch.rand(8, 1, H, W, device=card)
     before = epilogue.LAUNCHES["conv_epilogue"]
+    stems = fused_stem.LAUNCHES["fused_stem"]
     net.full_frame_forward(params, state, frames)
     torch.cuda.synchronize()
-    assert epilogue.LAUNCHES["conv_epilogue"] - before == 7
-    # params that track gradients take the kernel too
+    # conv1 -> pool1 runs as the fused stem K6; conv2..conv7 take the epilogue
+    assert epilogue.LAUNCHES["conv_epilogue"] - before == 6
+    assert fused_stem.LAUNCHES["fused_stem"] - stems == 1
+    # params that track gradients take the kernel too, after each of the
+    # seven convs: K6 has no backward
     tracked = {k: v.clone().requires_grad_() for k, v in params.items()}
     before = epilogue.LAUNCHES["conv_epilogue"]
+    stems = fused_stem.LAUNCHES["fused_stem"]
     out = net.full_frame_forward(tracked, state, frames)
     torch.cuda.synchronize()
     assert epilogue.LAUNCHES["conv_epilogue"] - before == 7 and out.requires_grad
+    assert fused_stem.LAUNCHES["fused_stem"] == stems
 
     model = YoloEventTorch(h_frame=H, w_frame=W, num_classes=100, cnn_layers=layers_dict(EFCN),
                            cnn_padding="SAME", h_cells=5, w_cells=7, num_bbox=2, alpha=0.1,
@@ -123,9 +133,13 @@ def test_a_served_dispatch_is_the_unfused_layers_output(card, monkeypatch):
         return [r.outputs for r in pipe.serve(items)], pipe.state
 
     before = epilogue.LAUNCHES["conv_epilogue"]
+    stems = fused_stem.LAUNCHES["fused_stem"]
     fused, fused_state = serve()
-    assert epilogue.LAUNCHES["conv_epilogue"] - before >= 2 * 7  # two dispatches
+    # two dispatches: the fused stem K6 and six epilogues each
+    assert epilogue.LAUNCHES["conv_epilogue"] - before >= 2 * 6
+    assert fused_stem.LAUNCHES["fused_stem"] - stems >= 2
     monkeypatch.setattr(epilogue, "conv_epilogue", epilogue.conv_epilogue_plain)
+    monkeypatch.setattr(net, "_stem_pairs", frozenset())  # conv1 and pool1 unfused too
     plain, plain_state = serve()
     assert len(fused) == len(plain) == 2
     for a, b in zip(fused, plain):

@@ -147,7 +147,7 @@ def test_k6_rejects_what_it_does_not_take(rng):
     for shape in ((2, 15, 8), (2, 1, 8, 8)):
         with pytest.raises(ValueError, match="even H and W"):
             tf.fused_stem(_t(rng.rand(*shape).astype(np.float32)), taps, b)
-    # O past the kernel's constant block, or none: refused on either route
+    # O past the kernel's parameter struct, or none: refused on either route
     x = _t(rng.rand(1, 4, 4).astype(np.float32))
     for o in (tf.STEM_MAX_O + 1, 0):
         with pytest.raises(ValueError, match=f"1 <= O <= {tf.STEM_MAX_O}"):
@@ -159,7 +159,7 @@ def test_k6_rejects_what_it_does_not_take(rng):
 
 
 def test_k6_constants_match_the_cuda_source():
-    """The wrapper's largest O is the kernel's constant block, and at the
+    """The wrapper's largest O is the kernel's parameter struct's, and at the
     eFCN's width a tile's items (2x2 pooled pixels each: half the band's
     rows, a pair of columns) are exactly the block's threads."""
     src = (REPO / "async_ev_cnn_torch" / "csrc" / "fused_stem.cu").read_text()

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from async_ev_cnn_torch.layers.network import EventNetwork
-from async_ev_cnn_torch.ops import epilogue
+from async_ev_cnn_torch.ops import epilogue, fused_stem
 from async_ev_cnn_torch.ops.conv import set_matmul_precision
 from async_ev_cnn_torch.ops.pool import maxpool_dense
 from async_ev_cnn_torch.utils.config import layers_dict
@@ -86,10 +86,13 @@ def test_one_forward_of_the_published_network_is_the_reference(card):
     frames = torch.rand(4, 1, 416, 416, generator=g, device=card) * (
         torch.rand(4, 1, 416, 416, generator=g, device=card) < 0.1)
     before = epilogue.LAUNCHES["conv_epilogue"]
+    stems = fused_stem.LAUNCHES["fused_stem"]
     got = net.full_frame_forward(params, net.init_state(params, card), frames)
     torch.cuda.synchronize()
-    # four pooled epilogues (conv0/2/4/6) and nine unpooled
-    assert epilogue.LAUNCHES["conv_epilogue"] - before == 13
+    # the fused stem K6 (conv0 -> pool1), three pooled epilogues (conv2/4/6)
+    # and nine unpooled
+    assert fused_stem.LAUNCHES["fused_stem"] - stems == 1
+    assert epilogue.LAUNCHES["conv_epilogue"] - before == 12
     want = ref.forward(frames, w, layers)
     for a, b in zip(got, want):
         assert a.shape == b.shape
