@@ -4,7 +4,7 @@
 // Replaces examples/pallas_stem_negative.py::fused_stem (_stem_kernel), a
 // measured alternative to the library stem that the JAX package keeps
 // beside it (not on its path).  In the port it runs every 'full' network's
-// one-channel stem pair on the card (layers/network.py: the eFCN's conv1
+// one-channel stem pair on the card (layers/conv_stack.py: the eFCN's conv1
 // -> pool1, YOLOv3-tiny's conv0 -> pool1).  x: f32 [T, H, W] (H, W even);
 // w: f32 [9, O] taps, dy-major; bias: f32 [O] -> out: f32 [T, O, H/2, W/2].
 //
@@ -25,7 +25,7 @@
 //     whatever --fmad says.  The plain version in
 //     ops/fused_stem.py keeps the TPU kernel's order (acc = b first,
 //     product and sum rounded apart), so the two differ by a few ulps
-//     (chip_smoke.py states the tolerance), not bit for bit;
+//     (ops/fused_stem.py's K6_TOL bounds it), not bit for bit;
 //   * the taps and bias go to the kernel by value, in a __grid_constant__
 //     parameter struct (StemWeights: 9 * kMaxO + kMaxO floats, 2,560 B,
 //     under the 4 KB of a launch's parameters), so they sit in the

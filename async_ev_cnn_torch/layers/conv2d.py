@@ -38,8 +38,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from async_ev_cnn_torch.layers.conv_stack import full_conv
 from async_ev_cnn_torch.layers.types import ConvState, LayerIO
-from async_ev_cnn_torch.ops import epilogue, rulebook_gemm
+from async_ev_cnn_torch.ops import rulebook_gemm
 from async_ev_cnn_torch.ops.conv import (
     conv2d_dense,
     conv_out_shape,
@@ -149,19 +150,6 @@ def _make_io(spec: ConvSpec, state: ConvState, mask) -> LayerIO:
                    conv_actfn=state.conv_actfn * actfn, mask=mask)
 
 
-def _full_io(spec: ConvSpec, kernel, bias, prev_io: LayerIO) -> LayerIO:
-    """Full-recompute output: one conv of the predecessor's featuremap with
-    the activation folded in, so ``surface`` is the activated map and
-    ``layer_actfn`` is ``None`` (the scalar 1 of the JAX package).  The
-    conv and the activation run in float32; the activated map is then
-    stored as ``spec.act_dtype`` (a bf16 cast rounds to nearest even, as
-    ``astype(jnp.bfloat16)`` does).  Bias, activation and cast are one
-    :func:`~async_ev_cnn_torch.ops.epilogue.conv_epilogue`."""
-    fm = epilogue.conv_epilogue(conv2d_dense(prev_io.featuremap, kernel, None, spec.stride,
-                                             spec.padding), bias, spec.alpha, spec.act_dtype)
-    return LayerIO(surface=fm, layer_actfn=None, conv_actfn=None, mask=None)
-
-
 def conv_init(spec: ConvSpec, kernel, bias, prev_init_io: LayerIO
               ) -> tuple[ConvState, LayerIO]:
     """Initial state: the dense conv of the predecessor's initial
@@ -169,8 +157,8 @@ def conv_init(spec: ConvSpec, kernel, bias, prev_init_io: LayerIO
     placeholders keep the state structure uniform."""
     if spec.mode == "full":
         zero = torch.zeros((), dtype=torch.float32, device=kernel.device)
-        return ConvState(featuremap=zero, conv_actfn=zero.clone()), _full_io(
-            spec, kernel, bias, prev_init_io)
+        fm = full_conv(spec, kernel, bias, prev_init_io.featuremap)
+        return ConvState(featuremap=zero, conv_actfn=zero.clone()), LayerIO(fm, None, None, None)
     fm = conv2d_dense(prev_init_io.featuremap, kernel, bias, spec.stride, spec.padding)
     state = ConvState(featuremap=fm, conv_actfn=torch.zeros_like(fm))
     _, oh, ow = spec.out_shape
@@ -306,7 +294,8 @@ def conv_step(spec: ConvSpec, kernel, bias, state: ConvState, prev_io: LayerIO,
     dense fallbacks and kernel launches.
     """
     if spec.mode == "full":
-        return state, _full_io(spec, kernel, bias, prev_io)
+        # the activated map: layer_actfn None (the JAX package's scalar 1)
+        return state, LayerIO(full_conv(spec, kernel, bias, prev_io.featuremap), None, None, None)
 
     before_sign = state.featuremap >= 0
     # snapped, so every copy of this expression agrees on the updated sign

@@ -20,10 +20,11 @@ from typing import NamedTuple
 
 import torch
 
+from async_ev_cnn_torch.layers.conv_stack import full_pool
 from async_ev_cnn_torch.layers.types import LayerIO, PoolState
 from async_ev_cnn_torch.ops.conv import conv_out_shape
 from async_ev_cnn_torch.ops.masks import dilate_mask, window_view
-from async_ev_cnn_torch.ops.pool import composite_argmax, maxpool_dense
+from async_ev_cnn_torch.ops.pool import composite_argmax
 
 
 class PoolSpec(NamedTuple):
@@ -44,15 +45,6 @@ class PoolSpec(NamedTuple):
         c, h, w = self.in_shape
         oh, ow = conv_out_shape(h, w, *self.ksize, self.stride, self.padding)
         return (c, oh, ow)
-
-
-def _full_pool_io(spec: PoolSpec, prev_io: LayerIO) -> LayerIO:
-    """Dense max over the *activated* map.  The leaky activation is
-    monotone, so this equals the activated value at the window argmax."""
-    fm = maxpool_dense(prev_io.featuremap, spec.ksize, spec.stride, spec.padding)
-    # a max over bf16 inputs is exact in bf16
-    return LayerIO(surface=fm.to(getattr(torch, spec.act_dtype)), layer_actfn=None,
-                   conv_actfn=None, mask=None)
 
 
 def _gather(spec: PoolSpec, array, idx):
@@ -83,7 +75,7 @@ def pool_init(spec: PoolSpec, prev_init_io: LayerIO) -> tuple[PoolState, LayerIO
     if spec.mode == "full":
         state = PoolState(idx_max=torch.zeros((), dtype=torch.int32, device=dev),
                           recompute=torch.zeros((), dtype=torch.bool, device=dev))
-        return state, _full_pool_io(spec, prev_init_io)
+        return state, LayerIO(full_pool(spec, prev_init_io.featuremap), None, None, None)
     surf_w = window_view(prev_init_io.surface, spec.ksize, spec.stride)
     idx = torch.argmax(surf_w, dim=-1).to(torch.int32)
     _, oh, ow = spec.out_shape
@@ -107,7 +99,7 @@ def pool_step_full_recompute(spec: PoolSpec, state: PoolState, prev_io: LayerIO,
 def pool_step(spec: PoolSpec, state: PoolState, prev_io: LayerIO, delta_leak
               ) -> tuple[PoolState, LayerIO]:
     if spec.mode == "full":
-        return state, _full_pool_io(spec, prev_io)
+        return state, LayerIO(full_pool(spec, prev_io.featuremap), None, None, None)
     ev_windows = dilate_mask(prev_io.mask, spec.ksize, spec.stride)
     recompute = state.recompute & ~ev_windows  # only events clear the flag
     active = ev_windows | recompute

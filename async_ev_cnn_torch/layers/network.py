@@ -31,6 +31,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.conv2d import ConvSpec, conv_init, conv_step
 from async_ev_cnn_torch.layers.integration import (
     IntegrationSpec,
@@ -45,7 +46,7 @@ from async_ev_cnn_torch.layers.types import (
     LayerIO,
     PoolState,
 )
-from async_ev_cnn_torch.ops import epilogue, fused_stem, stem
+from async_ev_cnn_torch.ops import stem
 from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky, matmul_precision
 from async_ev_cnn_torch.ops.integrate import integrate_parallel
 from async_ev_cnn_torch.ops.pool import maxpool_dense
@@ -243,23 +244,6 @@ def build_layer_defs(
     return event_layers, tail
 
 
-def _io(fm: torch.Tensor) -> LayerIO:
-    """A 'full' layer's output: the activated map alone."""
-    return LayerIO(surface=fm, layer_actfn=None, conv_actfn=None, mask=None)
-
-
-def route(parts: list) -> torch.Tensor:
-    """A route's output: its one map, or its maps ``[(N,) C_i, H, W]``
-    concatenated over channels in order."""
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-3)
-
-
-def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """``[(N,) C, H, W]`` -> ``[(N,) C, H * factor, W * factor]``, each value
-    repeated over a ``factor x factor`` block (exact in any dtype)."""
-    return x.repeat_interleave(factor, dim=-2).repeat_interleave(factor, dim=-1)
-
-
 def needs_grad(frame: torch.Tensor, params) -> bool:
     """Whether a forward of ``frame`` with ``params`` builds a graph for
     autograd: grad mode is on and the frame or a parameter requires grad."""
@@ -333,24 +317,13 @@ class EventNetwork:
         # pool could fold in; whether they fuse is _fusion_active's call.
         # A conv whose own output is kept is not fused: the pair never
         # stores it
-        pairs = [(i, c.spec, p.spec)
-                 for i, (c, p) in enumerate(zip(self.event_layers[1:], self.event_layers[2:]))
-                 if c.kind == "conv" and p.kind == "pool" and c.name not in self._keep]
         self._s2d_pairs = frozenset(
-            i for i, c, p in pairs
-            if stem.s2d_pair_applicable(c, p) and stem.s2d_pair_wins(c))
-        # conv+pool pairs whose pool the conv's epilogue takes
-        # (ops.epilogue.conv_epilogue, pooled), where no s2d fusion does
-        self._epilogue_pairs = frozenset(
-            i for i, c, p in pairs if epilogue.pair_fuses(c, p))
-        # of those, the one-channel stems that K6 (ops.fused_stem) runs as
-        # one launch on the card where no gradient is needed (_fused_pairs)
-        self._stem_pairs = frozenset(
-            i for i, c, p in pairs
-            if i in self._epilogue_pairs and fused_stem.pair_applicable(c, p))
-        #: K6's taps and bias in host memory, a stem conv's name to
-        #: ``ops.fused_stem.host_weights``' entry
-        self._stem_weights: dict = {}
+            i for i, (c, p) in enumerate(zip(self.event_layers[1:], self.event_layers[2:]))
+            if c.kind == "conv" and p.kind == "pool" and c.name not in self._keep
+            and stem.s2d_pair_applicable(c.spec, p.spec) and stem.s2d_pair_wins(c.spec))
+        #: the conv stack's plans (``layers.conv_stack.plan``), by device
+        #: type, grad and fusion
+        self._plans: dict = {}
         #: per conv layer of the sequential engine: host reads of device
         #: flags (``host_syncs``), ``dense_fallbacks`` and
         #: ``kernel_launches`` since the last :meth:`reset_counts`
@@ -388,35 +361,6 @@ class EventNetwork:
             return (prec == "default" and stem.allow_demoted_precision
                     and self._act_dtype == "float32")
         return False
-
-    def _fused_pairs(self, device=None, grad: bool = False) -> dict[int, str]:
-        """The conv+pool pairs :meth:`full_frame_forward` runs as one op at
-        this call, by the conv's index into ``event_layers[1:]``: 's2d' (one
-        space-to-depth conv, where :meth:`_fusion_active`), 'stem' (K6: the
-        conv, bias, activation and pool of a one-channel stem in one launch,
-        where the tensors are on a card ``device`` and no gradient is
-        needed, ``grad`` False: :func:`needs_grad`) or 'epilogue' (cuDNN's
-        conv and one pooled epilogue)."""
-        pairs = dict.fromkeys(self._epilogue_pairs, "epilogue")
-        if self._stem_pairs and not grad and device is not None and (
-                torch.device(device).type == "cuda"):
-            pairs.update(dict.fromkeys(self._stem_pairs, "stem"))
-        if self._s2d_pairs and self._fusion_active():
-            pairs.update(dict.fromkeys(self._s2d_pairs, "s2d"))
-        return pairs
-
-    def _pooled_pair(self, pair: str, ld: LayerDef, params, x: torch.Tensor) -> torch.Tensor:
-        """The float32 pooled map of conv ``ld`` and its pool over ``x``
-        ``[(N,) C, H, W]``: one space-to-depth conv ('s2d') or one K6
-        launch ('stem').  A method of its own, so that no name in the walk
-        keeps the map alive once the next layer has replaced it."""
-        w, b = params[f"w_{ld.name}"], params[f"b_{ld.name}"]
-        if pair == "s2d":
-            return stem.fused_conv_pool(x, w, b, ld.spec.alpha)
-        taps, bias = fused_stem.host_weights(self._stem_weights, ld.name, w, b)
-        fm = fused_stem.fused_stem(x.float().reshape(-1, *x.shape[-2:]).contiguous(), taps,
-                                   bias, ld.spec.alpha)
-        return fm.reshape(*x.shape[:-3], *fm.shape[-3:])
 
     # ---- memory model for the parallel-in-time path ---------------------
 
@@ -587,61 +531,35 @@ class EventNetwork:
         ``[(N,) h, w, c]``, or for a network with ``yolo`` layers a tuple of
         their grids, in order.  ``upto`` truncates after that many layers
         and returns the truncated featuremap (EXCLUSIVE over the
-        post-integration layers, as in the JAX package).  A pair of
-        :meth:`_fused_pairs` runs as one space-to-depth conv ('s2d'), as K6
-        (:mod:`~async_ev_cnn_torch.ops.fused_stem`, 'stem') or as cuDNN's
-        conv and one pooled epilogue (bias, activation and pool,
-        :mod:`~async_ev_cnn_torch.ops.epilogue`), unless ``upto`` cuts
-        inside it; the pair's span is the conv's.  A graph's walk keeps
-        the outputs that a later route or head reads until it returns."""
+        post-integration layers, as in the JAX package).  The walk follows
+        :func:`~async_ev_cnn_torch.layers.conv_stack.plan`: each step runs
+        one layer, or a conv and its pool as one op unless ``upto`` cuts
+        inside the pair, in the span of its first layer.  A graph's walk
+        keeps the outputs that a later route or head reads until it
+        returns."""
         with span("scan.conv_stack"):
+            steps = conv_stack.plan(self, frame.device, needs_grad(frame, params))
             # surface >= 0, so featuremap == surface: no activation mask
-            io = LayerIO(surface=frame, layer_actfn=None, conv_actfn=None, mask=None)
-            layers, states = self.event_layers[1:], state[1:]
-            fused = self._fused_pairs(
-                frame.device, bool(self._stem_pairs) and needs_grad(frame, params))
-            kept, grids = {}, []
-            i = 0
-            while i < len(layers):
-                if upto is not None and i >= upto:
-                    return io.featuremap
-                ld, st = layers[i], states[i]
-                pair = fused.get(i) if upto is None or upto >= i + 2 else None
-                with span(self._spans[ld.name]):
-                    if pair in ("s2d", "stem"):
-                        # one cast at the pair's pooled output: the float32
-                        # conv output is never stored
-                        act = getattr(torch, layers[i + 1].spec.act_dtype)
-                        io = _io(self._pooled_pair(pair, ld, params,
-                                                   self._conv_input(ld, io).featuremap).to(act))
-                    elif pair == "epilogue":
-                        io = _io(epilogue.conv_epilogue(
-                            conv2d_dense(self._conv_input(ld, io).featuremap,
-                                         params[f"w_{ld.name}"], None, ld.spec.stride,
-                                         ld.spec.padding),
-                            params[f"b_{ld.name}"], ld.spec.alpha, ld.spec.act_dtype,
-                            pooled=True))
-                    elif ld.kind == "conv":
-                        _, io = conv_step(ld.spec, params[f"w_{ld.name}"],
-                                          params[f"b_{ld.name}"], st,
-                                          self._conv_input(ld, io), 0.0)
-                    elif ld.kind == "pool":
-                        _, io = pool_step(ld.spec, st, io, 0.0)
-                    elif ld.kind == "route":
-                        io = _io(route([kept[name] for name in ld.spec.sources]))
-                    elif ld.kind == "upsample":
-                        io = _io(upsample_nearest(io.featuremap, ld.spec.factor))
-                    else:  # yolo: the network's outputs are float32
-                        grids.append(kept[ld.spec.source].movedim(-3, -1).float())
-                i += 2 if pair else 1
-                if layers[i - 1].name in self._keep:
-                    kept[layers[i - 1].name] = io.featuremap
+            x, kept, grids = frame, {}, []
+            for step in steps:
+                if upto is not None and step.start >= upto:
+                    return x
+                if upto is not None and step.start + len(step.layers) > upto:
+                    step = conv_stack.Step("conv", step.start, step.layers[:1])  # cut: unfused
+                with span(self._spans[step.layers[0].name]):
+                    out = conv_stack.RUNS[step.route](self, params, step, x, kept)
+                if step.route == "yolo":
+                    grids.append(out)
+                else:
+                    x = out
+                if step.layers[-1].name in self._keep:
+                    kept[step.layers[-1].name] = x
             if upto is not None:
-                return io.featuremap
+                return x
             if self.heads:
                 return tuple(grids)
             with span("layer.tail"):
-                return self.apply_tail(params, io.featuremap.movedim(-3, -1))
+                return self.apply_tail(params, x.movedim(-3, -1))
 
     def scan_parallel(
         self,

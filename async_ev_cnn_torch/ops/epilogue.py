@@ -1,6 +1,6 @@
-"""The epilogue of a 'full' conv: its bias, the leaky activation and, where
-a 2x2 stride-2 'full' max-pool follows, that pool, in one pass over the
-conv's raw output (``conv2d_dense(..., bias=None)``).
+"""The epilogue of a conv: its bias, the leaky activation and, if asked,
+the 2x2 stride-2 max-pool after them, in one pass over the conv's raw
+output (``conv2d_dense(..., bias=None)``).
 
 No Pallas kernel stands behind it: the JAX package leaves this fusion to
 XLA, which folds bias, activation and ``reduce_window`` into the conv's
@@ -52,16 +52,6 @@ def pools_exactly(alpha: float) -> bool:
     """Whether the pool may run before the activation with an exact result:
     ``0 < alpha <= 1`` once rounded to float32 (at 0, ``-inf * 0`` is NaN)."""
     return 0.0 < float(np.float32(alpha)) <= 1.0
-
-
-def pair_fuses(conv_spec, pool_spec) -> bool:
-    """Whether a 'full' conv and the pool after it run as one pooled
-    epilogue: a 2x2 stride-2 'full' pool, an ``alpha`` that pools exactly,
-    and one activation dtype for the two."""
-    return (conv_spec.mode == "full" and pool_spec.mode == "full"
-            and tuple(pool_spec.ksize) == (2, 2) and pool_spec.stride == 2
-            and conv_spec.act_dtype == pool_spec.act_dtype
-            and pools_exactly(conv_spec.alpha))
 
 
 def _check_args(x, bias, act_dtype):

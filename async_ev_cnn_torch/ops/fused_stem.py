@@ -3,22 +3,21 @@ one-channel input in one kernel.
 
 Counterpart of ``examples/pallas_stem_negative.py``, which the JAX package
 keeps as a measured alternative to its library stem (a negative result on
-its TPU).  In the port it is the stem of every 'full' network on the card:
-:meth:`~async_ev_cnn_torch.layers.network.EventNetwork.full_frame_forward`
-runs each conv+pool pair that :func:`pair_applicable` admits as one call
-(the eFCN's conv1 -> pool1, YOLOv3-tiny's conv0 -> pool1), where its
-tensors are on the card and no gradient is needed; on the CPU and under
-autograd the pair keeps cuDNN's conv and the pooled epilogue
-(:mod:`~async_ev_cnn_torch.ops.epilogue`).  The hand-written kernel is
-``csrc/fused_stem.cu``.  The plain version runs the TPU kernel's
-float32 operations in its order: ``acc = b``, then ``acc + x * w`` tap by
+its TPU).  In the port it runs the one-channel stem of the parallel
+path's conv stack on the card (``layers/conv_stack.py`` decides where).
+The hand-written kernel is ``csrc/fused_stem.cu``.  The plain version runs
+the TPU kernel's float32 operations in its order: ``acc = b``, then ``acc + x * w`` tap by
 tap, product and sum rounded apart, the activation, the 2x2 max.  The
 kernel takes the same taps in the same order but rounds each tap once (a
 fused multiply-add, from zero) and, for ``0 <= alpha <= 1``, adds the bias
 and activates after the max (both are monotone there): the roundings of
 cuDNN's conv and the pooled epilogue, the library stem it replaces.  So
-kernel and plain version agree within a few float32 ulps, not bit for
-bit; ``chip_smoke.py`` states the tolerance.  The
+kernel and plain version agree within ``K6_TOL * (1 + max|plain|)``,
+:data:`K6_TOL` = 1e-6, not bit for bit: a conv value moves by at most half
+an ulp of each of the 9 products and 10 partial sums, 19 half-ulps of the
+chain's largest term (about 1.1e-6 of it, far less in practice, as the
+roundings are independent), and the 2x2 max and the activation add none
+(monotone for 0 <= alpha <= 1; the same order otherwise).  The
 activation is ``where(x > 0, x, alpha * x)`` here, as in the TPU kernel
 (equal to the network's ``max(x, alpha * x)`` for 0 <= alpha <= 1).  A
 call runs inside one ``conv.stem`` span.  The kernel takes the taps and
@@ -48,28 +47,15 @@ LAUNCHES = {"fused_stem": 0}
 #: output channels the kernel's parameter struct holds (csrc/fused_stem.cu)
 STEM_MAX_O = 64
 
+#: K6 against its plain version or the library stem: ``|kernel - ref| <=
+#: K6_TOL * (1 + max|ref|)`` (the module docstring derives it)
+K6_TOL = 1e-6
+
 _HOST = torch.device("cpu")
 
 
 def reset_launches() -> None:
     LAUNCHES["fused_stem"] = 0
-
-
-def pair_applicable(conv_spec, pool_spec) -> bool:
-    """Whether a 'full' conv and the 2x2 stride-2 'full' pool after it are
-    the kernel's: one input channel, a 3x3 kernel at stride 1 with SAME
-    padding over even spatial dims, and 1 to ``STEM_MAX_O`` output
-    channels.  The network asks besides that the pair fuses under the
-    epilogue (:func:`~async_ev_cnn_torch.ops.epilogue.pair_fuses`: an
-    ``alpha`` in (0, 1], one activation dtype) and that the conv's own
-    output is kept for no route or head."""
-    _, h, w = conv_spec.in_shape
-    return (conv_spec.mode == "full" and pool_spec.mode == "full"
-            and conv_spec.in_shape[0] == 1 and tuple(conv_spec.ksize) == (3, 3)
-            and conv_spec.stride == 1 and conv_spec.padding == "SAME"
-            and h % 2 == 0 and w % 2 == 0
-            and 1 <= conv_spec.out_channels <= STEM_MAX_O
-            and tuple(pool_spec.ksize) == (2, 2) and pool_spec.stride == 2)
 
 
 def _version(t: torch.Tensor):

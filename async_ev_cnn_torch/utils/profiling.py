@@ -244,6 +244,7 @@ def profile_layers_parallel(net, params, chunks, reps: int = 3, dispatches: int 
     conv+pool pair the forward fuses is one row, as it runs as one op.
 
     Returns ``[(name, ms_per_dispatch_marginal), ..., ('TOTAL', ms)]``."""
+    from async_ev_cnn_torch.layers import conv_stack
     from async_ev_cnn_torch.layers.network import needs_grad
     from async_ev_cnn_torch.ops.integrate import integrate_parallel
 
@@ -264,20 +265,13 @@ def profile_layers_parallel(net, params, chunks, reps: int = 3, dispatches: int 
 
         return _best_ms(run, device, reps) / dispatches
 
-    names = ["integrate"] + [ld.name for ld in net.event_layers[1:]]
     # conv+pool pairs the forward runs as ONE op (a space-to-depth conv,
     # K6, or a conv and its pooled epilogue) must be probed as one row: cutting
     # between them would time an unfused conv that the path never runs
-    fused = net._fused_pairs(device, needs_grad(chunks.y, params))
-    probes = []
-    k = 0
-    while k < len(names):
-        if (k - 1) in fused and k + 1 < len(names):
-            probes.append((k + 1, f"{names[k]}+{names[k + 1]} ({fused[k - 1]})"))
-            k += 2
-        else:
-            probes.append((k, names[k]))
-            k += 1
+    steps = conv_stack.plan(net, device, needs_grad(chunks.y, params))
+    probes = [(0, "integrate")] + [
+        (s.start + len(s.layers), "+".join(ld.name for ld in s.layers)
+         + (f" ({s.route})" if len(s.layers) > 1 else "")) for s in steps]
     if net.dense_tail:
         probes.append((None, "tail"))  # upto=None: the full forward with its tail
     rows = []

@@ -95,9 +95,10 @@ paths, and the precision options:
     (kernel_rows_conv_pair) at every layer, within the same tolerance
     of rows_conv_pair (counts set to 0 just before, read just after);
 14. K6 (fused_stem) on the T=200 surfaces of a full-width dispatch,
-    within K6_TOL * (1 + max |plain|) of its plain version and bit-equal
-    across two launches and to the network's stem (full_frame_forward's
-    conv1 -> pool1, which runs K6), within K6_TOL * (1 + max |library|) of
+    within K6_TOL * (1 + max |plain|) of its plain version (K6_TOL is
+    ops/fused_stem.py's, 1e-6) and bit-equal across two launches and to
+    the network's stem (full_frame_forward's conv1 -> pool1, which runs
+    K6), within K6_TOL * (1 + max |library|) of
     the library stem (cuDNN's conv and the pooled epilogue) and 1e-5 of
     fused_conv_pool at 'highest'; the same at its edge shapes (K6_EDGES:
     T = 1, H/2 not a multiple of the band, W/2 odd, O = 1 and 64, alpha < 0
@@ -347,15 +348,6 @@ GG_EDGES = (
 TIER_GATE_STEPS = 200
 # calls a trace of named kernels runs ahead of the ones it counts (device_ms)
 TRACE_LEAD = 4
-# K6 against its plain version: |kernel - plain| <= K6_TOL * (1 + max|plain|).
-# The kernel rounds each of its 9 taps once (an FMA, from zero) and adds
-# the bias last, where the plain version starts from the bias and rounds
-# product and sum apart, so a conv value moves by at most half an ulp of
-# each product and of each partial sum: 19 half-ulps of the largest term
-# of the chain, about 1.1e-6 of it, and far less in practice (the
-# roundings are independent); the 2x2 max and the activation add no error
-# of their own (monotone for 0 <= alpha <= 1; the same order otherwise).
-K6_TOL = 1e-6
 # K6's edge shapes: (what, T, H, W, O, alpha).  The band is 8 pooled rows
 # and a thread takes 2x2 pooled pixels; O = 16 is the unrolled instance,
 # every other O the generic one, and alpha outside [0, 1] the
@@ -1225,7 +1217,7 @@ def k6_check(x, taps, bias, alpha, what: str) -> float:
     torch.cuda.synchronize()
     require(bit_equal(got, again), f"K6 at {what}: two launches on the same inputs differ")
     err = float((got - want).abs().max())
-    tol = K6_TOL * (1 + float(want.abs().max()))
+    tol = tf.K6_TOL * (1 + float(want.abs().max()))
     require(err <= tol, f"K6 at {what} differs from its plain version by {err} > {tol}")
     return err
 
@@ -1257,7 +1249,7 @@ def stem_dispatch_times(dev) -> list:
         lib = library_stem(x[:, None], kernel, bias, 0.1)
         torch.cuda.synchronize()
         err = float((got - lib).abs().max())
-        tol = K6_TOL * (1 + float(lib.abs().max()))
+        tol = tf.K6_TOL * (1 + float(lib.abs().max()))
         require(err <= tol, f"K6 at {what} differs from the library stem by {err} > {tol}")
         del got, lib
         b_ms, b_by = bound_ms(4 * (n * h * w + n * o * (h // 2) * (w // 2)),
@@ -1303,7 +1295,7 @@ def stem_kernel_phase(dev, model, c0):
     torch.cuda.synchronize()
     err_f = float((got - fused).abs().max())
     err_d = float((got - lib).abs().max())
-    require(err_f <= 1e-5 and err_d <= K6_TOL * (1 + float(lib.abs().max())),
+    require(err_f <= 1e-5 and err_d <= tf.K6_TOL * (1 + float(lib.abs().max())),
             f"K6 differs from fused_conv_pool by {err_f}, from the library stem by {err_d}")
     # the edge shapes, each against the plain version, a second launch and
     # both library stems
@@ -1343,7 +1335,7 @@ def stem_kernel_phase(dev, model, c0):
                           2 * 9 * t * o * h * w)
     dispatches = stem_dispatch_times(dev)
     print(f"stem-kernel: K6 over the {t} surfaces of a dispatch (C=1 {h}x{w}, O={o}): "
-          f"within {K6_TOL} * (1 + max|plain|) of its plain version, bit-equal across two "
+          f"within {tf.K6_TOL} * (1 + max|plain|) of its plain version, bit-equal across two "
           f"launches and to the network's stem (max abs err {err:.2e} over the dispatch and "
           "the edges: " + "; ".join(edges) + f"), within {err_f:.2e} of fused_conv_pool and "
           f"{err_d:.2e} of the library stem (cuDNN's conv and the pooled epilogue; the edges "

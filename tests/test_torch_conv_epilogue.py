@@ -1,6 +1,6 @@
 """The conv epilogue (async_ev_cnn_torch/ops/epilogue.py) and where the
-parallel path takes it (EventNetwork.full_frame_forward's conv+pool pairs,
-conv2d._full_io for every other 'full' conv).
+parallel path takes it (layers/conv_stack.py: the 'pooled' conv+pool pairs
+and every other 'full' conv).
 
 On the CPU the wrapper runs its plain version, the unfused layers' eager
 sequence, so every comparison here is bit for bit.  The kernel's own order
@@ -17,6 +17,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.network import EventNetwork
 from async_ev_cnn_torch.layers.types import EventChunk
 from async_ev_cnn_torch.ops import conv as tconv
@@ -204,15 +205,20 @@ def unfused_stack(net, params, frames, upto=None):
     return x if upto is not None else net.apply_tail(params, x.movedim(-3, -1))
 
 
+def _pooled(net):
+    """The convs whose pool the epilogue takes (the CPU's plan: no K6)."""
+    return {s.start for s in conv_stack.plan(net) if s.route == "pooled"}
+
+
 def test_only_full_2x2_stride_2_pools_pair():
-    assert _net()._epilogue_pairs == {0, 2}  # pool3 is 3x3
-    assert _net(act_dtype="bfloat16")._epilogue_pairs == {0, 2}
-    assert _net(mode="sparse_pallas")._epilogue_pairs == frozenset()  # event pools
-    assert _net("conv1=3,3,1,4 pool1=2,2 conv2=3,3,4,8@full pool2=2,2",
-                mode="dense")._epilogue_pairs == {2}
-    assert _net("conv1=3,3,1,4 pool1=4,4 conv2=3,3,4,8 pool2=2,2")._epilogue_pairs == {2}
+    assert _pooled(_net()) == {0, 2}  # pool3 is 3x3
+    assert _pooled(_net(act_dtype="bfloat16")) == {0, 2}
+    assert _pooled(_net(mode="sparse_pallas")) == set()  # event pools
+    assert _pooled(_net("conv1=3,3,1,4 pool1=2,2 conv2=3,3,4,8@full pool2=2,2",
+                        mode="dense")) == {2}
+    assert _pooled(_net("conv1=3,3,1,4 pool1=4,4 conv2=3,3,4,8 pool2=2,2")) == {2}
     for alpha in (0.0, -0.1, 1.5):  # pooling first is exact only for 0 < alpha <= 1
-        assert _net(alpha=alpha)._epilogue_pairs == frozenset()
+        assert _pooled(_net(alpha=alpha)) == set()
 
 
 @pytest.mark.parametrize("act_dtype", ["float32", "bfloat16"])

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.network import EventNetwork
 from async_ev_cnn_torch.ops import epilogue, fused_stem
 from async_ev_cnn_torch.ops.conv import set_matmul_precision
@@ -73,7 +74,7 @@ def test_the_kernel_is_its_plain_version_at_each_efcn_shape(card, shape, act_dty
 
 
 @pytest.mark.chip
-def test_one_forward_of_the_efcn_launches_seven_epilogues_and_a_step_none(card):
+def test_one_forward_of_the_efcn_launches_k6_and_six_epilogues_and_a_step_none(card):
     from async_ev_cnn_torch.layers.types import EventChunk
     from async_ev_cnn_torch.models.yolo import YoloEventTorch
 
@@ -139,7 +140,9 @@ def test_a_served_dispatch_is_the_unfused_layers_output(card, monkeypatch):
     assert epilogue.LAUNCHES["conv_epilogue"] - before >= 2 * 6
     assert fused_stem.LAUNCHES["fused_stem"] - stems >= 2
     monkeypatch.setattr(epilogue, "conv_epilogue", epilogue.conv_epilogue_plain)
-    monkeypatch.setattr(net, "_stem_pairs", frozenset())  # conv1 and pool1 unfused too
+    real = conv_stack.plan  # the CPU's plan: conv1 and pool1 unfused too
+    monkeypatch.setattr(conv_stack, "plan",
+                        lambda net, device=None, grad=False: real(net, "cpu", grad))
     plain, plain_state = serve()
     assert len(fused) == len(plain) == 2
     for a, b in zip(fused, plain):

@@ -14,6 +14,7 @@ port: its test records the divergence.
 
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -95,11 +96,17 @@ def _assert_read_equal(got, want):
 
 
 @pytest.mark.parametrize("decoder", ["numpy", "native"])
-def test_codecs_write_and_read_equal_jax(tmp_path, rng, request, decoder):
+def test_codecs_write_and_read_equal_jax(tmp_path, rng, request, monkeypatch, decoder):
     """Each format written by the port byte-equal to the JAX package's file,
     and read back equal to the JAX package's numpy decode, by the port's
     numpy codecs and by its native decoder."""
     request.getfixturevalue("numpy_codecs" if decoder == "numpy" else "native_lib")
+    # both writers stamp the AEDAT headers with the time: one clock for both
+    # writes, so a second that ticks between them changes no byte
+    ctime, strftime, now = time.ctime, time.strftime, time.time()
+    monkeypatch.setattr(time, "ctime", lambda secs=None: ctime(now if secs is None else secs))
+    monkeypatch.setattr(time, "strftime", lambda fmt, t=None: strftime(
+        fmt, time.localtime(now) if t is None else t))
     for k, (name, tc, jc, ev, kw) in enumerate(_codec_cases(rng)):
         ext = ".npy" if name == "numpy" else ".dat"  # np.save appends .npy to a path without
         tp, jp = str(tmp_path / f"t{k}{ext}"), str(tmp_path / f"j{k}{ext}")
@@ -400,7 +407,7 @@ def test_profiling_matches_jax(tmp_path, rng):
     for mode, fn, names in (
             ("dense", tprof.profile_layers, ["intgr", "conv1", "pool1", "conv2", "TOTAL"]),
             ("full", tprof.profile_layers_parallel,
-             ["integrate", "conv1+pool1 (epilogue)", "conv2", "TOTAL"])):
+             ["integrate", "conv1+pool1 (pooled)", "conv2", "TOTAL"])):
         net = EventNetwork(ld, 8, 8, 1e-3, padding="SAME", conv_mode=mode)
         rows = fn(net, params, chunks, reps=1, dispatches=1)
         assert [r[0] for r in rows] == names

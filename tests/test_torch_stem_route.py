@@ -1,6 +1,6 @@
 """Which conv+pool pairs of a 'full' network run as the fused stem K6
 (ops/fused_stem.py) and which keep cuDNN's conv and the pooled epilogue
-(EventNetwork._fused_pairs), and that the CPU path is unchanged.
+(layers/conv_stack.plan), and that the CPU path is unchanged.
 
 K6 takes a pair where it fuses under the epilogue, its conv reads one
 channel through a 3x3 SAME kernel at stride 1 into 1 to STEM_MAX_O
@@ -9,8 +9,9 @@ tensors are on the card and no gradient is needed; an active
 space-to-depth pair takes precedence.  The predicate is read here with a
 card device named, which needs no card.  On the CPU the path is the
 unfused layers' composition bit for bit, as before the route existed;
-the 'stem' branch itself is run on the CPU by forcing it, where K6's
-wrapper runs its plain version.
+the 'stem' route itself is run on the CPU by forcing it (the plan of a
+card in place of the CPU's), where K6's wrapper runs its plain version.
+Each route's run function is held to the layers it replaces, step by step.
 """
 
 import weakref
@@ -20,12 +21,16 @@ import pytest
 import torch
 import yaml
 
-from async_ev_cnn_torch.layers import network
-from async_ev_cnn_torch.layers.network import EventNetwork, needs_grad, route, upsample_nearest
+from async_ev_cnn_torch.layers import conv_stack, network
+from async_ev_cnn_torch.layers.conv2d import conv_step
+from async_ev_cnn_torch.layers.maxpool import pool_step
+from async_ev_cnn_torch.layers.network import EventNetwork, needs_grad
+from async_ev_cnn_torch.layers.types import LayerIO
 from async_ev_cnn_torch.ops import conv as tconv
 from async_ev_cnn_torch.ops import epilogue
 from async_ev_cnn_torch.ops import fused_stem as tf
 from async_ev_cnn_torch.ops import pool as tpool
+from async_ev_cnn_torch.ops import stem as tstem
 from async_ev_cnn_torch.utils import profiling
 from async_ev_cnn_torch.utils.config import layers_dict
 from async_ev_cnn_torch.utils.weights import fold_batchnorm
@@ -35,8 +40,7 @@ torch.set_num_threads(2)
 
 EFCN_YML = "configs/efcn_event_full.yml"
 YOLO_YML = "async_ev_cnn_torch/configs/yolov3_tiny_event.yml"
-# K6 against its plain version and the library stems (chip_smoke.K6_TOL)
-K6_TOL = 1e-6
+K6_TOL = tf.K6_TOL
 
 
 def _yml(path) -> dict:
@@ -80,39 +84,39 @@ def _stride_2_conv1(monkeypatch):
 # (id, how the net is built, the autograd setup, {conv of each pair: the kind it runs})
 PAIR_CASES = [
     ("efcn", lambda: _yml_net(EFCN_YML), None,
-     {"conv1": "stem", "conv2": "epilogue", "conv3": "epilogue", "conv4": "epilogue",
-      "conv5": "epilogue"}),
+     {"conv1": "stem", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
+      "conv5": "pooled"}),
     ("efcn_bf16", lambda: _yml_net(EFCN_YML, activation_dtype="bfloat16"), None,
-     {"conv1": "stem", "conv2": "epilogue", "conv3": "epilogue", "conv4": "epilogue",
-      "conv5": "epilogue"}),
+     {"conv1": "stem", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
+      "conv5": "pooled"}),
     ("yolov3_tiny", lambda: _yml_net(YOLO_YML, stem_fusion=False), None,
-     {"conv0": "stem", "conv2": "epilogue", "conv4": "epilogue", "conv6": "epilogue"}),
+     {"conv0": "stem", "conv2": "pooled", "conv4": "pooled", "conv6": "pooled"}),
     ("two_input_channels", lambda: _dsl_net("conv1=3,3,2,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2"),
-     None, {"conv1": "epilogue", "conv2": "epilogue"}),
+     None, {"conv1": "pooled", "conv2": "pooled"}),
     ("5x5_stem", lambda: _dsl_net("conv1=5,5,1,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2"), None,
-     {"conv1": "epilogue", "conv2": "epilogue"}),
+     {"conv1": "pooled", "conv2": "pooled"}),
     ("alpha_0", lambda: _dsl_net("conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2", alpha=0.0),
      None, {}),
-    ("stride_2", "stride_2", None, {"conv1": "epilogue", "conv2": "epilogue"}),
+    ("stride_2", "stride_2", None, {"conv1": "pooled", "conv2": "pooled"}),
     ("stem_routed", lambda: _dsl_net(
         "conv1=3,3,1,4 pool1=2,2 conv2=3,3,4,8 pool2=2,2 route3=conv1 conv4=1,1,4,4"), None,
-     {"conv2": "epilogue"}),
+     {"conv2": "pooled"}),
     ("o_past_the_struct", lambda: _dsl_net(
-        f"conv1=3,3,1,{tf.STEM_MAX_O + 1} pool1=2,2"), None, {"conv1": "epilogue"}),
+        f"conv1=3,3,1,{tf.STEM_MAX_O + 1} pool1=2,2"), None, {"conv1": "pooled"}),
     ("odd_width", lambda: _dsl_net("conv1=3,3,1,8 pool1=2,2", w=33), None,
-     {"conv1": "epilogue"}),
+     {"conv1": "pooled"}),
     ("s2d_at_highest", lambda: _yml_net(EFCN_YML, stem_fusion=True), None,
-     {"conv1": "s2d", "conv2": "epilogue", "conv3": "epilogue", "conv4": "epilogue",
-      "conv5": "epilogue"}),
+     {"conv1": "s2d", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
+      "conv5": "pooled"}),
     ("autograd_params", lambda: _yml_net(EFCN_YML), "params",
-     {"conv1": "epilogue", "conv2": "epilogue", "conv3": "epilogue", "conv4": "epilogue",
-      "conv5": "epilogue"}),
+     {"conv1": "pooled", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
+      "conv5": "pooled"}),
     ("autograd_frame", lambda: _yml_net(EFCN_YML), "frame",
-     {"conv1": "epilogue", "conv2": "epilogue", "conv3": "epilogue", "conv4": "epilogue",
-      "conv5": "epilogue"}),
+     {"conv1": "pooled", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
+      "conv5": "pooled"}),
     ("params_track_grad_mode_off", lambda: _yml_net(EFCN_YML), "no_grad",
-     {"conv1": "stem", "conv2": "epilogue", "conv3": "epilogue", "conv4": "epilogue",
-      "conv5": "epilogue"}),
+     {"conv1": "stem", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
+      "conv5": "pooled"}),
 ]
 
 
@@ -137,13 +141,28 @@ def test_each_pair_runs_the_kind_its_shape_and_device_give(monkeypatch, make, au
     names = [ld.name for ld in net.event_layers[1:]]
 
     def kinds(device):
-        return {names[i]: k for i, k in net._fused_pairs(device, grad).items()}
+        steps = conv_stack.plan(net, device, grad)
+        assert [ld.name for s in steps for ld in s.layers] == names  # each layer once, in order
+        return {s.layers[0].name: s.route for s in steps if len(s.layers) == 2}
 
     assert kinds("cuda") == want
     assert kinds(torch.device("cuda", 0)) == want
     # on the CPU no pair takes K6: the ones it would take keep the epilogue
-    assert kinds("cpu") == {n: "epilogue" if k == "stem" else k for n, k in want.items()}
+    assert kinds("cpu") == {n: "pooled" if k == "stem" else k for n, k in want.items()}
     assert kinds(None) == kinds("cpu")
+
+
+def _pairs(net, device):
+    """(route, start) of each step of two layers in ``net``'s plan."""
+    return [(s.route, s.start) for s in conv_stack.plan(net, device) if len(s.layers) == 2]
+
+
+def _card_plan(monkeypatch):
+    """Force the routes of a card on the CPU: the walk's plan is the one a
+    card gets, so K6's route runs its wrapper's plain version."""
+    real = conv_stack.plan
+    monkeypatch.setattr(conv_stack, "plan",
+                        lambda net, device=None, grad=False: real(net, "cuda", grad))
 
 
 def unfused_walk(net, params, frames):
@@ -160,16 +179,17 @@ def unfused_walk(net, params, frames):
         elif ld.kind == "pool":
             x = tpool.maxpool_dense(x, ld.spec.ksize, ld.spec.stride, ld.spec.padding)
         elif ld.kind == "route":
-            x = route([kept[s] for s in ld.spec.sources])
+            x = torch.cat([kept[s] for s in ld.spec.sources], dim=-3)
         elif ld.kind == "upsample":
-            x = upsample_nearest(x, ld.spec.factor)
+            f = ld.spec.factor
+            x = x.repeat_interleave(f, dim=-2).repeat_interleave(f, dim=-1)
         else:
             grids.append(kept[ld.spec.source].movedim(-3, -1).float())
         kept[ld.name] = x
     return tuple(grids) if net.heads else net.apply_tail(params, x.movedim(-3, -1))
 
 
-def _tiny_yolo():
+def _tiny_yolo(stem_fusion=False):
     layers = ref.darknet_layers(div=16)
     dsl = " ".join(
         f"conv{i}={la['size']},{la['size']},{la['in']},{la['filters']}"
@@ -182,7 +202,7 @@ def _tiny_yolo():
         else f"upsample{i}={la['stride']}"
         for i, la in enumerate(layers))
     net = EventNetwork(layers_dict(dsl), 64, 64, 5e-5, 0.1, "SAME", conv_mode="full",
-                       stem_fusion=False)
+                       stem_fusion=stem_fusion)
     g = torch.Generator().manual_seed(5)
     w = {}
     for i, la in enumerate(layers):
@@ -217,6 +237,88 @@ def test_full_frame_forward_on_the_cpu_is_the_unfused_walk_bit_for_bit(model):
     assert tf.LAUNCHES["fused_stem"] == 0 and epilogue.LAUNCHES["conv_epilogue"] == 0
 
 
+def _layerwise(params, step, x, kept):
+    """What the walk computed for a step's layers before the plan existed,
+    on the CPU: conv_step and pool_step one layer at a time ('conv',
+    'pool', and 'pooled' composed), K6's plain version for a 'stem' pair,
+    fused_conv_pool for an 's2d' pair, the concatenation of a route, the
+    repeated values of an upsampling and a head's float32 grid."""
+    ld = step.layers[0]
+    if step.route in ("stem", "s2d"):
+        w, b = params[f"w_{ld.name}"], params[f"b_{ld.name}"]
+        act = getattr(torch, step.layers[1].spec.act_dtype)
+        if step.route == "s2d":
+            return tstem.fused_conv_pool(x, w, b, ld.spec.alpha).to(act)
+        fm = tf.fused_stem_plain(x.reshape(-1, *x.shape[-2:]), tf.w_taps_from_oihw(w), b,
+                                 ld.spec.alpha)
+        return fm.reshape(*x.shape[:-3], *fm.shape[-3:]).to(act)
+    if step.route == "route":
+        parts = [kept[name] for name in ld.spec.sources]
+        return torch.cat(parts, dim=-3) if len(parts) > 1 else parts[0]
+    if step.route == "upsample":
+        f = ld.spec.factor
+        *lead, c, h, w = x.shape
+        return x[..., None, :, None].expand(*lead, c, h, f, w, f).reshape(*lead, c, h * f, w * f)
+    if step.route == "yolo":
+        return kept[ld.spec.source].movedim(-3, -1).float()
+    io = LayerIO(x, None, None, None)
+    for layer in step.layers:
+        if layer.kind == "conv":
+            _, io = conv_step(layer.spec, params[f"w_{layer.name}"], params[f"b_{layer.name}"],
+                              None, io, 0.0)
+        else:
+            _, io = pool_step(layer.spec, None, io, 0.0)
+    return io.featuremap
+
+
+# (model, forced routes, the routes its plan takes)
+ROUTE_CASES = [
+    ("efcn", "cpu", {"pooled", "conv"}),
+    ("efcn", "k6", {"stem", "pooled", "conv"}),
+    ("efcn", "s2d", {"s2d", "pooled", "conv"}),
+    ("yolov3_tiny", "cpu", {"pooled", "conv", "pool", "route", "upsample", "yolo"}),
+    ("yolov3_tiny", "k6", {"stem", "pooled", "conv", "pool", "route", "upsample", "yolo"}),
+    ("yolov3_tiny", "s2d", {"s2d", "pooled", "conv", "pool", "route", "upsample", "yolo"}),
+]
+
+
+@pytest.mark.parametrize("model,force,routes", ROUTE_CASES,
+                         ids=[f"{m}-{f}" for m, f, _ in ROUTE_CASES])
+def test_each_route_is_the_layers_it_replaces(monkeypatch, model, force, routes):
+    """Every step of the plan, run by its route's function, is
+    ``torch.equal`` to the same layers computed one at a time as before the
+    plan existed; and the walk over the plan gives the composition's
+    output.  'k6' forces the routes of a card, 's2d' fuses the stem by
+    space-to-depth (``stem_fusion=True`` at 'highest')."""
+    tconv.set_matmul_precision("highest")
+    if model == "efcn":
+        net = EventNetwork(layers_dict(_yml(EFCN_YML)["yolo_cnn_layers"]), 32, 48, 5e-5, 0.1,
+                           "SAME", conv_mode="full", stem_fusion=force == "s2d")
+        params, (h, w) = _params(net, seed=8), (32, 48)
+    else:
+        (net, params), (h, w) = _tiny_yolo(stem_fusion=force == "s2d"), (64, 64)
+    if force == "k6":
+        _card_plan(monkeypatch)
+    g = torch.Generator().manual_seed(12)
+    frames = torch.rand(2, 1, h, w, generator=g) * (torch.rand(2, 1, h, w, generator=g) < 0.3)
+    steps = conv_stack.plan(net, "cpu")
+    assert {s.route for s in steps} == routes
+    x, kept, grids = frames, {}, []
+    for step in steps:
+        got = conv_stack.RUNS[step.route](net, params, step, x, kept)
+        want = _layerwise(params, step, x, kept)
+        assert got.dtype == want.dtype and torch.equal(got, want), step.route
+        if step.route == "yolo":
+            grids.append(want)
+        else:
+            x = want
+        kept[step.layers[-1].name] = x
+    out = net.full_frame_forward(params, net.init_state(params, "cpu"), frames)
+    want = tuple(grids) if net.heads else (net.apply_tail(params, x.movedim(-3, -1)),)
+    out = out if net.heads else (out,)
+    assert len(out) == len(want) and all(torch.equal(a, b) for a, b in zip(out, want))
+
+
 @pytest.mark.parametrize("act_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("batched", [True, False])
 def test_the_stem_branch_forced_on_the_cpu_is_k6s_plain_version(monkeypatch, act_dtype,
@@ -227,9 +329,9 @@ def test_the_stem_branch_forced_on_the_cpu_is_k6s_plain_version(monkeypatch, act
     K6's tolerance of the unfused layers."""
     net = _dsl_net("conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2 conv3=1,1,8,6",
                    h=20, w=28, activation_dtype=act_dtype)
-    assert net._stem_pairs == {0} and net._epilogue_pairs == {0, 2}
-    real = net._fused_pairs
-    monkeypatch.setattr(net, "_fused_pairs", lambda device=None, grad=False: real("cuda", grad))
+    assert _pairs(net, "cuda") == [("stem", 0), ("pooled", 2)]
+    assert _pairs(net, "cpu") == [("pooled", 0), ("pooled", 2)]
+    _card_plan(monkeypatch)
     params = _params(net, seed=2)
     g = torch.Generator().manual_seed(2)
     frames = torch.rand(4, 1, 20, 28, generator=g)
@@ -262,8 +364,7 @@ def test_the_walk_keeps_no_pooled_stem_map_past_the_layer_that_reads_it(monkeypa
     bound to it would hold a [N, O, H/2, W/2] map, 2.8 GB at YOLOv3-tiny's
     1,024 frames, through the rest of the network)."""
     net = _dsl_net("conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2 conv3=1,1,8,6", h=20, w=28)
-    real = net._fused_pairs
-    monkeypatch.setattr(net, "_fused_pairs", lambda device=None, grad=False: real("cuda", grad))
+    _card_plan(monkeypatch)
     stems, alive_at_conv3 = [], []
     stem_call, epilogue_call = tf.fused_stem, epilogue.conv_epilogue
 

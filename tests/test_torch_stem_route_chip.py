@@ -20,6 +20,7 @@ No JAX here: run it on the card's machine without the tests' conftest:
 import pytest
 import torch
 
+from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.network import EventNetwork
 from async_ev_cnn_torch.ops import epilogue
 from async_ev_cnn_torch.ops import fused_stem as tf
@@ -31,8 +32,7 @@ EFCN = ("conv1=3,3,1,16 pool1=2,2 conv2=3,3,16,32 pool2=2,2 conv3=3,3,32,64 pool
         "conv4=3,3,64,128 pool4=2,2 conv5=3,3,128,256 pool5=2,2 conv6=1,1,256,512 "
         "conv7=1,1,512,110")
 YOLO_YML = "async_ev_cnn_torch/configs/yolov3_tiny_event.yml"
-# K6 against the library stem (chip_smoke.K6_TOL)
-K6_TOL = 1e-6
+K6_TOL = tf.K6_TOL
 OUT_REL = 1e-6
 
 
@@ -71,8 +71,12 @@ def _library_stem(net, params, frames):
                                ld.spec.alpha), (2, 2), 2, "VALID")
 
 
-def _without_k6(net, monkeypatch):
-    monkeypatch.setattr(net, "_stem_pairs", frozenset())
+def _without_k6(monkeypatch):
+    """The walk takes the CPU's plan on the card too: the stem keeps
+    cuDNN's conv and the pooled epilogue."""
+    real = conv_stack.plan
+    monkeypatch.setattr(conv_stack, "plan",
+                        lambda net, device=None, grad=False: real(net, "cpu", grad))
 
 
 def _rel(a, b) -> float:
@@ -96,7 +100,7 @@ def _check_network(net, params, frames, monkeypatch, want_epilogues):
     assert float((stem - lib).abs().max()) <= K6_TOL * (1 + float(lib.abs().max()))
     got, k6, e1 = _counted(lambda: net.full_frame_forward(params, state, frames))
     assert (k6, e1) == (1, want_epilogues)
-    _without_k6(net, monkeypatch)
+    _without_k6(monkeypatch)
     want, k6, e1 = _counted(lambda: net.full_frame_forward(params, state, frames))
     assert (k6, e1) == (0, want_epilogues + 1)
     for a, b in zip(got if net.heads else (got,), want if net.heads else (want,)):
@@ -156,17 +160,19 @@ def test_a_dispatch_makes_no_copy_of_the_weights_and_waits_for_nothing(card):
     frames = _frames(8, 160, 224, card, seed=5)
     state = net.init_state(params, card)
     first = net.full_frame_forward(params, state, frames)  # makes the host weights
-    entry = net._stem_weights["conv1"]
+    # the stem step of the card's plan, which the network keeps
+    weights = next(s.weights for s in conv_stack.plan(net, card) if s.route == "stem")
+    entry = weights["conv1"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         again = net.full_frame_forward(params, state, frames)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert net._stem_weights["conv1"] is entry and torch.equal(first, again)
+    assert weights["conv1"] is entry and torch.equal(first, again)
     params["w_conv1"].mul_(0.5)  # new values in place: the taps are made again
     half = net.full_frame_forward(params, state, frames, upto=2)
-    assert net._stem_weights["conv1"] is not entry
+    assert weights["conv1"] is not entry
     assert not torch.equal(half, net.full_frame_forward(
         {**params, "w_conv1": params["w_conv1"] * 2}, state, frames, upto=2))
 

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from async_ev_cnn_torch.layers import network
+from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.network import EventNetwork, dense_forward
 from async_ev_cnn_torch.layers.types import EventChunk
 from async_ev_cnn_torch.models import head
@@ -164,7 +164,7 @@ def test_the_published_network_builds_at_416():
     assert shapes["route20"] == (384, 26, 26) and shapes["yolo16"] == (255, 13, 13)
     assert shapes["yolo23"] == (255, 26, 26) and net.heads == ("yolo16", "yolo23")
     # E1 pools conv0/2/4/6; conv8's pair is not fused, a route reads conv8
-    assert sorted(net._fused_pairs()) == [0, 2, 4, 6]
+    assert [s.start for s in conv_stack.plan(net) if len(s.layers) == 2] == [0, 2, 4, 6]
     assert text == dsl_of(ref.darknet_layers())
     n_params = sum(lay["in"] * lay["filters"] * lay["size"] ** 2 + lay["filters"]
                    * (4 if lay["bn"] else 1)
@@ -514,14 +514,15 @@ def test_a_tiny_run_of_each_new_cell_is_correct(tmp_path, cell):
 
 def test_the_yolo_cell_with_the_skip_zeroed_is_not_correct(tmp_path, monkeypatch):
     root = tiny_bench(tmp_path)
-    route = network.route
+    route = conv_stack.RUNS["route"]
 
-    def no_skip(parts):  # conv8's skip into route20 replaced by zeros
-        if len(parts) == 2:
-            parts = [parts[0], torch.zeros_like(parts[1])]
-        return route(parts)
+    def no_skip(net, params, step, x, kept):  # conv8's skip into route20 replaced by zeros
+        sources = step.layers[0].spec.sources
+        if len(sources) == 2:
+            kept = {**kept, sources[1]: torch.zeros_like(kept[sources[1]])}
+        return route(net, params, step, x, kept)
 
-    monkeypatch.setattr(network, "route", no_skip)
+    monkeypatch.setitem(conv_stack.RUNS, "route", no_skip)
     result, lines = _run(root, "t.yolo")
     assert not result["correct"], lines
     assert result["checks"]["out_gap"]["value"] > 1e-3
