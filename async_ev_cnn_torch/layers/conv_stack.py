@@ -16,8 +16,8 @@ from typing import NamedTuple
 import torch
 
 from async_ev_cnn_torch.layers.types import LayerIO
-from async_ev_cnn_torch.ops import epilogue, fused_stem, stem
-from async_ev_cnn_torch.ops.conv import conv2d_dense
+from async_ev_cnn_torch.ops import conv_pool, epilogue, fused_stem, stem
+from async_ev_cnn_torch.ops.conv import conv2d_dense, tier_uses_tf32
 from async_ev_cnn_torch.ops.pool import maxpool_dense
 
 
@@ -25,7 +25,8 @@ class Step(NamedTuple):
     """``route`` runs ``layers`` (one ``LayerDef``, or a conv and its pool),
     the first at ``start`` in ``event_layers[1:]``.  A 'stem' step keeps
     K6's weights in host memory (:func:`~async_ev_cnn_torch.ops.
-    fused_stem.host_weights`)."""
+    fused_stem.host_weights`), a 'conv_pool' step C1's packed weights
+    (:func:`~async_ev_cnn_torch.ops.conv_pool.packed_weights`)."""
 
     route: str
     start: int
@@ -33,37 +34,50 @@ class Step(NamedTuple):
     weights: dict | None = None
 
 
-def plan(net, device=None, grad: bool = False) -> tuple[Step, ...]:
-    """``net``'s steps for frames on ``device`` (None: the CPU), ``grad``
-    whether the forward builds a graph for autograd (``network.
-    needs_grad``); made once per (device type, grad, fusion) and kept in
-    the network."""
+def plan(net, device=None, grad: bool = False, frames: int | None = None) -> tuple[Step, ...]:
+    """``net``'s steps for a batch of ``frames`` maps on ``device`` (None:
+    the CPU), ``grad`` whether the forward builds a graph for autograd
+    (``network.needs_grad``); made once per (device type, grad, fusion,
+    precision tier and, on a card, batch) and kept in the network.  On a
+    card, a pair whose shape gives it C1 keeps the 'pooled' route for a
+    batch where C1 would not give that route's numbers bit for bit
+    (:func:`c1_gives_the_library`, a probe run once per pair and batch as
+    the plan is made).  Without ``frames`` the plan probes nothing and
+    gives the routes that the shapes allow."""
     kind = "cpu" if device is None else torch.device(device).type
-    key = (kind, bool(grad), bool(net._s2d_pairs) and net._fusion_active())
+    card = kind == "cuda" and not grad
+    key = (kind, bool(grad), bool(net._s2d_pairs) and net._fusion_active(),
+           tier_uses_tf32(), frames if card else None)
     steps = net._plans.get(key)
     if steps is None:
         layers, steps, i = net.event_layers[1:], [], 0
         while i < len(layers):
-            route = _pair_route(net, layers, i, k6=kind == "cuda" and not grad, s2d=key[2])
+            route = _pair_route(net, layers, i, card=card, s2d=key[2])
+            if (route == "conv_pool" and card and frames is not None
+                    and not c1_gives_the_library(layers[i].spec, frames, device)):
+                route = "pooled"
             size = 2 if route else 1
             steps.append(Step(route or layers[i].kind, i, tuple(layers[i:i + size]),
-                              {} if route == "stem" else None))
+                              {} if route in ("stem", "conv_pool") else None))
             i += size
         steps = net._plans[key] = tuple(steps)
     return steps
 
 
-def _pair_route(net, layers, i: int, k6: bool, s2d: bool) -> str | None:
+def _pair_route(net, layers, i: int, card: bool, s2d: bool) -> str | None:
     """The route of a pair that starts at layer ``i``, or None where the
     layer runs alone.  's2d' (one space-to-depth conv, ``ops/stem.py``)
     for the network's ``_s2d_pairs`` while they fuse; else 'pooled'
     (cuDNN's conv and the pooled epilogue E1, ``ops/epilogue.py``) for a
     'full' conv and a 2x2 stride-2 'full' pool of one activation dtype, an
     ``alpha`` that pools exactly and the conv's map kept for no route or
-    head (the pair never stores it); of those, 'stem' (K6,
-    ``ops/fused_stem.py``) where ``k6`` (a card, no gradient: K6 has no
-    backward) for one input channel, the s2d pair's 3x3 SAME stride-1 conv
-    over even dims and at most ``STEM_MAX_O`` outputs."""
+    head (the pair never stores it).  Of those, where ``card`` (a card, no
+    gradient: K6 and C1 have no backward) and the conv is the s2d pair's
+    3x3 SAME stride-1 conv over even dims: 'stem' (K6,
+    ``ops/fused_stem.py``) for one input channel and at most
+    ``STEM_MAX_O`` outputs, else 'conv_pool' (C1, ``ops/conv_pool.py``)
+    for float32 activations at an IEEE float32 tier (C1 sums in float32;
+    at the TF32 tier the library's numbers are TF32's)."""
     if s2d and i in net._s2d_pairs:
         return "s2d"
     if i + 1 == len(layers):
@@ -74,10 +88,53 @@ def _pair_route(net, layers, i: int, k6: bool, s2d: bool) -> str | None:
             and c.mode == p.mode == "full" and tuple(p.ksize) == (2, 2) and p.stride == 2
             and c.act_dtype == p.act_dtype and epilogue.pools_exactly(c.alpha)):
         return None
-    if (k6 and c.in_shape[0] == 1 and 1 <= c.out_channels <= fused_stem.STEM_MAX_O
-            and stem.s2d_pair_applicable(c, p)):
-        return "stem"
+    if card and stem.s2d_pair_applicable(c, p):
+        if c.in_shape[0] == 1 and 1 <= c.out_channels <= fused_stem.STEM_MAX_O:
+            return "stem"
+        if c.act_dtype == "float32" and not tier_uses_tf32():
+            return "conv_pool"
     return "pooled"
+
+
+def c1_gives_the_library(spec, frames: int, device) -> bool:
+    """Whether C1 gives, bit for bit, what the 'pooled' route gives for a
+    batch of ``frames`` maps of conv ``spec``'s input on ``device``.  C1
+    sums each output in cuDNN's implicit-GEMM order (input channel, then
+    tap, from zero, by FMA), so it does wherever cuDNN runs an implicit
+    GEMM.  Where cuDNN's heuristic picks another algorithm for the batch (an
+    FFT: the eFCN's conv3 from 16 frames on, conv4 at 64, on the H100), the
+    last bits differ, and the network's outputs with them; the pair then
+    keeps the 'pooled' route, so no route changes a number the network
+    gives.  cuDNN picks by shape, and PyTorch keeps its pick per shape, so
+    one seeded probe of the batch's shape runs both, once; its launches
+    count as any other.  Where the two differ, C1 must still lie within
+    :func:`~async_ev_cnn_torch.ops.conv_pool.c1_bound` of its plain
+    version (on the first and last maps) and within ``LIBRARY_REL`` of the
+    library's largest value: else C1 is at fault, and this raises.
+
+    A named debt (ROADMAP): this probe and the 'pooled' fallback go once
+    the benchmark's ``out_gap`` limit is derived from C1's readings."""
+    g = torch.Generator(device=device).manual_seed(0)
+    c, o = spec.in_shape[0], spec.out_channels
+    x = torch.rand((frames, *spec.in_shape), generator=g, device=device).sub_(0.5).clamp_(min=0)
+    kernel = torch.randn((o, c, 3, 3), generator=g, device=device) * (2 / (9 * c)) ** 0.5
+    bias = torch.randn(o, generator=g, device=device) * 0.1
+    library = full_conv(spec, kernel, bias, x, pooled=True)
+    c1 = conv_pool.conv_pool(x, kernel, bias, spec.alpha)
+    if torch.equal(c1, library):
+        return True
+    gap = float((c1 - library).abs().max())
+    ends = x[[0, -1]]
+    plain = conv_pool.conv_pool_plain(ends, kernel, bias, spec.alpha)
+    within = bool(((c1[[0, -1]].double() - plain.double()).abs()
+                   <= conv_pool.c1_bound(ends, kernel, bias, plain)).all())
+    if not within or gap > conv_pool.LIBRARY_REL * float(library.abs().max()):
+        raise RuntimeError(
+            f"C1 at {tuple(x.shape)} -> {spec.out_channels} channels is "
+            f"{'within' if within else 'outside'} its bound of its plain version and "
+            f"{gap:.3g} from the library pair, whose largest value is "
+            f"{float(library.abs().max()):.3g}: the kernel is at fault")
+    return False
 
 
 def full_conv(spec, kernel, bias, x, pooled: bool = False) -> torch.Tensor:
@@ -125,6 +182,13 @@ def run_stem(net, params, step, x, kept):
         getattr(torch, step.layers[1].spec.act_dtype))
 
 
+def run_conv_pool(net, params, step, x, kept):
+    spec, w, b, x = _conv_args(net, params, step.layers[0], x)
+    fm = conv_pool.conv_pool(x.reshape(-1, *x.shape[-3:]).contiguous(), w, b, spec.alpha,
+                             conv_pool.packed_weights(step.weights, step.layers[0].name, w, b))
+    return fm.reshape(*x.shape[:-3], *fm.shape[-3:])
+
+
 def run_pooled(net, params, step, x, kept):
     return full_conv(*_conv_args(net, params, step.layers[0], x), pooled=True)
 
@@ -158,5 +222,6 @@ def run_yolo(net, params, step, x, kept):
 
 
 #: each route's function
-RUNS = {"s2d": run_s2d, "stem": run_stem, "pooled": run_pooled, "conv": run_conv,
-        "pool": run_pool, "route": run_route, "upsample": run_upsample, "yolo": run_yolo}
+RUNS = {"s2d": run_s2d, "stem": run_stem, "conv_pool": run_conv_pool, "pooled": run_pooled,
+        "conv": run_conv, "pool": run_pool, "route": run_route, "upsample": run_upsample,
+        "yolo": run_yolo}

@@ -538,7 +538,8 @@ class EventNetwork:
         keeps the outputs that a later route or head reads until it
         returns."""
         with span("scan.conv_stack"):
-            steps = conv_stack.plan(self, frame.device, needs_grad(frame, params))
+            steps = conv_stack.plan(self, frame.device, needs_grad(frame, params),
+                                    frames=prod(frame.shape[:-3]))
             # surface >= 0, so featuremap == surface: no activation mask
             x, kept, grids = frame, {}, []
             for step in steps:

@@ -125,6 +125,22 @@ def on_cpu(*tensors) -> bool:
                      f"got {sorted(devices)}")
 
 
+def weights_cache(cache: dict, key, make, *tensors):
+    """``make(*tensors)``, kept in ``cache`` under ``key`` and made anew
+    when one of ``tensors`` is another tensor, or its version or storage
+    has moved (a write in place, ``.data`` rebound).  An inference tensor
+    keeps no version, so its entry is made at every call.  A kernel's
+    wrapper keeps its weights in the form the kernel takes this way, once
+    per weight tensor."""
+    stamp = tuple((None if t.is_inference() else t._version, t.data_ptr()) for t in tensors)
+    hit = cache.get(key)
+    if (hit is None or len(hit[0]) != len(tensors)
+            or any(a is not b for a, b in zip(hit[0], tensors)) or hit[1] != stamp
+            or any(v is None for v, _ in stamp)):
+        hit = cache[key] = (tensors, stamp, make(*tensors))
+    return hit[2]
+
+
 def check(name, tensor, dtype, device, ndim) -> None:
     """Raise unless ``tensor`` is what a kernel takes: its device, dtype,
     rank, and contiguous."""

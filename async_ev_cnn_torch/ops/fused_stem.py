@@ -58,26 +58,17 @@ def reset_launches() -> None:
     LAUNCHES["fused_stem"] = 0
 
 
-def _version(t: torch.Tensor):
-    """``t``'s version counter, or None for an inference tensor (it has none)."""
-    return None if t.is_inference() else t._version
-
-
 def host_weights(cache: dict, key, kernel: torch.Tensor, bias: torch.Tensor):
     """The kernel's weights of an OIHW ``[O, 1, 3, 3]`` ``kernel`` and its
     ``bias``: the ``[9, O]`` taps and the bias, float32 in host memory.
-    They are made once per pair of weight tensors, by identity and
-    version, and kept in ``cache`` under ``key``: a call that finds them
-    there copies nothing and does not wait for the card.  An inference
-    tensor keeps no version, so its weights are made at every call."""
-    stamp = (_version(kernel), _version(bias))
-    hit = cache.get(key)
-    if (hit is None or hit[0] is not kernel or hit[1] is not bias or hit[2] != stamp
-            or None in stamp):
-        hit = (kernel, bias, stamp, w_taps_from_oihw(kernel.detach().float()).cpu(),
-               bias.detach().float().contiguous().cpu())
-        cache[key] = hit
-    return hit[3], hit[4]
+    They are made once per pair of weight tensors and kept in ``cache``
+    under ``key`` (:func:`~async_ev_cnn_torch.ops.cuda_build.
+    weights_cache`): a call that finds them there copies nothing and does
+    not wait for the card.  An inference tensor keeps no version, so its
+    weights are made at every call."""
+    return cuda_build.weights_cache(
+        cache, key, lambda k, b: (w_taps_from_oihw(k.detach().float()).cpu(),
+                                  b.detach().float().contiguous().cpu()), kernel, bias)
 
 
 def w_taps_from_oihw(kernel: torch.Tensor) -> torch.Tensor:

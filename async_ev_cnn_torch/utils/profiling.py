@@ -268,7 +268,7 @@ def profile_layers_parallel(net, params, chunks, reps: int = 3, dispatches: int 
     # conv+pool pairs the forward runs as ONE op (a space-to-depth conv,
     # K6, or a conv and its pooled epilogue) must be probed as one row: cutting
     # between them would time an unfused conv that the path never runs
-    steps = conv_stack.plan(net, device, needs_grad(chunks.y, params))
+    steps = conv_stack.plan(net, device, needs_grad(chunks.y, params), frames=chunks.y.shape[0])
     probes = [(0, "integrate")] + [
         (s.start + len(s.layers), "+".join(ld.name for ld in s.layers)
          + (f" ({s.route})" if len(s.layers) > 1 else "")) for s in steps]

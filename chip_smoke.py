@@ -273,7 +273,17 @@ Then Orbax checkpoints, the ranks CLI and the window memory model:
     its plain version (torch.equal) in float32 and bf16, each layer's
     device time and their sum beside the bound (bytes), the plain
     version's time and the unfused layers' passes (the bias add, x * alpha,
-    the maximum, F.max_pool2d) by device time.
+    the maximum, F.max_pool2d) by device time;
+36. fused conv + pool (run after phase 35): C1 (csrc/conv_pool.cu) at the
+    route's seven pairs (the eFCN's conv2-conv5, YOLOv3-tiny's conv2, conv4
+    and conv6) at N = 64 within its bound of its plain version
+    (ops/conv_pool.c1_bound) and within 1e-6 of the largest magnitude of
+    cuDNN's conv and the pooled epilogue, and at N = 1,024 frames its
+    device time beside its FLOP bound, the plain version's time by events
+    and cuDNN's conv and the pooled epilogue's device time; then the time
+    and peak memory of the card plans' probes of both networks at N =
+    1,024 (each pair's C1 against cuDNN's conv and the pooled epilogue,
+    layers/conv_stack.c1_gives_the_library).
 
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's to K6's ``ms`` are their device time per call from
@@ -1358,9 +1368,12 @@ def stem_kernel_phase(dev, model, c0):
 # the eFCN's conv outputs in one served dispatch of the benchmark's replay
 # cell (16 streams x 64 chunks = 1,024 frames): (name, C, H, W, pooled)
 EPILOGUE_N = 1024
-# conv epilogue launches a dispatch of the eFCN: one after each conv but
-# conv1, whose pair with pool1 runs as the fused stem K6, once a dispatch
-EPILOGUES = 6
+# a forward of the eFCN on the card at T_CHUNKS frames: K6 once, C1 on
+# conv2 -> pool2, conv4 -> pool4 and conv5 -> pool5, and the epilogue after
+# conv3 (cuDNN runs it as an FFT at that batch, whose numbers C1 does not
+# give, so the card's plan keeps it on the 'pooled' route), conv6 and conv7
+EPILOGUES = 3
+C1S = 3
 STEMS = 1
 EPILOGUE_LAYERS = (
     ("conv1", 16, 160, 224, True), ("conv2", 32, 80, 112, True),
@@ -1427,6 +1440,113 @@ def epilogue_phase(dev, smi):
             "source": "async_ev_cnn_torch/csrc/conv_epilogue.cu", "replaces": None,
             "max_abs_err": err, "bound_by": "bytes", **total,
             "layers": rows}
+
+
+C1_N = 1024
+C1_CHECK_N = 64
+# the networks whose card plans probe C1 at C1_N frames: (name, config,
+# H, W); the eFCN's config holds its DSL, YOLOv3-tiny's its line
+C1_NETS = (("efcn", "configs/efcn_event_full.yml", 160, 224),
+           ("yolov3-tiny", "async_ev_cnn_torch/configs/yolov3_tiny_event.yml", 416, 416))
+C1_PAIRS = (("efcn conv2", 16, 32, 80, 112), ("efcn conv3", 32, 64, 40, 56),
+            ("efcn conv4", 64, 128, 20, 28), ("efcn conv5", 128, 256, 10, 14),
+            ("yolov3-tiny conv2", 16, 32, 208, 208), ("yolov3-tiny conv4", 32, 64, 104, 104),
+            ("yolov3-tiny conv6", 64, 128, 52, 52))
+
+
+def conv_pool_phase(dev, smi):
+    """Phase 36: the fused conv + pool C1 at the route's seven pairs: at N =
+    C1_CHECK_N within its bound of its plain version and within LIBRARY_REL
+    of the largest magnitude of cuDNN's conv and the pooled epilogue; at N =
+    C1_N its device time beside its FLOP bound (FP32 at PEAK_F32_S), the
+    plain version's time by events and the library pair's device time (the
+    conv and the epilogue it replaced); then the card plans' probes
+    (c1_probe_costs).  Returns C1's entry of the kernels'
+    JSON line, less its launches, which are the main path's."""
+    from async_ev_cnn_torch.ops import conv_pool as cp
+    from async_ev_cnn_torch.ops import epilogue as ep
+    from async_ev_cnn_torch.ops.conv import conv2d_dense
+
+    g = torch.Generator(device=dev).manual_seed(36)
+    rows, err = [], 0.0
+    for what, c_in, c_out, h, w in C1_PAIRS:
+        def operands(n):
+            x = torch.rand(n, c_in, h, w, generator=g, device=dev) * (
+                torch.rand(n, c_in, h, w, generator=g, device=dev) < 0.5)
+            k = torch.randn(c_out, c_in, 3, 3, generator=g, device=dev) * (2 / (9 * c_in)) ** 0.5
+            return x, k, torch.randn(c_out, generator=g, device=dev) * 0.1
+
+        def library(x, k, b):
+            return ep.conv_epilogue(conv2d_dense(x, k, None, 1, "SAME"), b, 0.1, pooled=True)
+
+        x, k, b = operands(C1_CHECK_N)
+        got = cp.conv_pool(x, k, b, 0.1)
+        plain = cp.conv_pool_plain(x, k, b, 0.1)
+        lib = library(x, k, b)
+        torch.cuda.synchronize()
+        gap = (got.double() - plain.double()).abs()
+        require(bool((gap <= cp.c1_bound(x, k, b, plain)).all()),
+                f"C1 at {what} leaves its bound of the plain version")
+        rel = float((got - lib).abs().max() / lib.abs().max())
+        require(rel <= cp.LIBRARY_REL,
+                f"C1 at {what} is {rel} of the library pair's largest value")
+        err = max(err, float(gap.max()))
+        del x, got, plain, lib
+        x, k, b = operands(C1_N)
+        packed = cp.pack_weights(k, b)
+        b_ms, b_by = bound_ms(4 * (x.numel() + C1_N * c_out * (h // 2) * (w // 2)),
+                              2 * 9 * c_in * c_out * h * w * C1_N)
+        rows.append({"pair": what, "shape": [C1_N, c_in, c_out, h, w], "rel_to_library": rel,
+                     "ms": device_ms(lambda: cp.conv_pool(x, k, b, 0.1, packed),
+                                     "conv_pool_kernel", iters=10),
+                     "plain_ms": time_ms(lambda: cp.conv_pool_plain(x, k, b, 0.1), 1, 2),
+                     "library_ms": device_ms(lambda: library(x, k, b), iters=10),
+                     "bound_ms": b_ms, "bound_by": b_by})
+        del x
+        torch.cuda.empty_cache()
+    probes = c1_probe_costs(dev)
+    print(f"conv_pool: C1 within its bound of its plain version and within "
+          f"{cp.LIBRARY_REL} of the library pair at the route's seven pairs (N={C1_CHECK_N}); N={C1_N} device ms "
+          "(bound, share of it; plain by events; cuDNN's conv and the pooled epilogue): "
+          + "; ".join(f"{r['pair']} {r['ms']:.4f} ({r['bound_ms']:.4f}, "
+                      f"{100 * r['bound_ms'] / r['ms']:.1f}%; {r['plain_ms']:.1f}; "
+                      f"{r['library_ms']:.4f})" for r in rows)
+          + "; the card plan's probes at N=" + str(C1_N) + " (C1 pairs, s, peak bytes above the "
+          "allocated): " + "; ".join(f"{r['net']} {'/'.join(r['c1'])} {r['probe_s']:.3f} "
+                                     f"{r['probe_peak_bytes']}" for r in probes)
+          + f"; card {smi!r}", flush=True)
+    return {"name": "conv_pool", "route": "cuda", "source": "async_ev_cnn_torch/csrc/conv_pool.cu",
+            "replaces": None, "max_abs_err": err, "bound_by": "operations", "pairs": rows,
+            "probes": probes}
+
+
+def c1_probe_costs(dev) -> list:
+    """The card plan of each of C1_NETS for a batch of C1_N frames, made on
+    a fresh network: the pairs it gives C1, the seconds its probes take
+    (cuDNN's first call at each shape included) and their peak memory
+    above what was allocated before."""
+    from async_ev_cnn_torch.layers import conv_stack
+    from async_ev_cnn_torch.layers.network import EventNetwork
+    from async_ev_cnn_torch.utils.config import layers_dict
+
+    rows = []
+    for what, path, h, w in C1_NETS:
+        dsl = Path(path).read_text().split("yolo_cnn_layers: ")[1].split("\n")[0]
+        net = EventNetwork(layers_dict(dsl), h, w, 5e-5, 0.1, "SAME", conv_mode="full",
+                           stem_fusion=False)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps = conv_stack.plan(net, dev, False, frames=C1_N)
+        torch.cuda.synchronize()
+        rows.append({"net": what, "frames": C1_N, "probe_s": time.perf_counter() - t0,
+                     "probe_peak_bytes": torch.cuda.max_memory_allocated() - base,
+                     "c1": [s.layers[0].name for s in steps if s.route == "conv_pool"]})
+        del net, steps
+        torch.cuda.empty_cache()
+    return rows
 
 
 def gather_copy_phase(dev):
@@ -3451,6 +3571,8 @@ def main() -> int:
     from async_ev_cnn_torch.models import head
     from async_ev_cnn_torch.models.yolo import YoloEventTorch
     from async_ev_cnn_torch.ops import cuda_build
+    from async_ev_cnn_torch.layers import conv_stack
+    from async_ev_cnn_torch.ops import conv_pool as tcp
     from async_ev_cnn_torch.ops import epilogue as ep
     from async_ev_cnn_torch.ops import fused_stem as tfs
     from async_ev_cnn_torch.ops import integrate as it
@@ -3479,7 +3601,8 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("surface_scan", "gather_gemm", "fused_stem", "gather_copy", "conv_epilogue")
+    sources = ("surface_scan", "gather_gemm", "fused_stem", "gather_copy", "conv_epilogue",
+               "conv_pool")
     with ThreadPoolExecutor(max_workers=1) as pool:  # the host decoder beside them
         native_built = pool.submit(build_native)
         cuda_build.load_all(sources)  # one nvcc per source, started together
@@ -3622,10 +3745,14 @@ def main() -> int:
     stream = synth_stream(np.random.RandomState(1), (DISPATCHES + 1) * T_CHUNKS, CAPACITY)
     items = np.split(stream, DISPATCHES + 1)
 
-    # the main path: the counts are set to 0 just before it, read just after
+    # the card's plan for a dispatch's T_CHUNKS frames, made (and its pairs
+    # probed) before the counted run; the main path: the counts are set to 0
+    # just before it, read just after
+    conv_stack.plan(model.net, dev, False, frames=T_CHUNKS)
     sc.reset_launches()
     ep.reset_launches()
     tfs.reset_launches()
+    tcp.reset_launches()
     torch.cuda.synchronize()
     warm = list(pipe.serve(items[:1]))  # first dispatch: cuDNN set-up
     t0 = time.perf_counter()
@@ -3635,16 +3762,17 @@ def main() -> int:
     main_launches = dict(sc.LAUNCHES)
     main_epilogues = ep.LAUNCHES["conv_epilogue"]
     main_stems = tfs.LAUNCHES["fused_stem"]
+    main_conv_pools = tcp.LAUNCHES["conv_pool"]
     served = warm + rest
 
     require(len(served) == DISPATCHES, f"served {len(served)} of {DISPATCHES} dispatches")
-    # T=200 chunks is one window: K1 once per dispatch, K2 never; K6 once
-    # (conv1 -> pool1) and the conv epilogue after each of the six convs
-    # after it
+    # T=200 chunks is one window: K1 once per dispatch, K2 never; K6, C1 and
+    # the conv epilogue as EPILOGUES says
     require(main_launches == scan_launches(events=DISPATCHES, tsmap=0),
             f"main path launches {main_launches} for {DISPATCHES} single-window dispatches")
-    require(main_epilogues == EPILOGUES * DISPATCHES,
-            f"main path launched {main_epilogues} conv epilogues for {DISPATCHES} dispatches")
+    require(main_epilogues == EPILOGUES * DISPATCHES and main_conv_pools == C1S * DISPATCHES,
+            f"main path launched {main_epilogues} conv epilogues and C1 {main_conv_pools} "
+            f"times for {DISPATCHES} dispatches")
     require(main_stems == STEMS * DISPATCHES,
             f"main path launched K6 {main_stems} times for {DISPATCHES} dispatches")
     for r in served:
@@ -3673,7 +3801,8 @@ def main() -> int:
           f"launches {main_launches} "
           f"({main_launches['surface_scan_events'] / DISPATCHES:g} K1 per dispatch), "
           f"conv epilogue {main_epilogues} ({main_epilogues / DISPATCHES:g} per dispatch), "
-          f"K6 {main_stems} ({main_stems / DISPATCHES:g} per dispatch); card {smi!r}",
+          f"K6 {main_stems} ({main_stems / DISPATCHES:g} per dispatch), "
+          f"C1 {main_conv_pools} ({main_conv_pools / DISPATCHES:g} per dispatch); card {smi!r}",
           flush=True)
 
     # the ts-map engine's path: one full-width dispatch through K2, its
@@ -3681,21 +3810,24 @@ def main() -> int:
     sc.reset_launches()
     ep.reset_launches()
     tfs.reset_launches()
+    tcp.reset_launches()
     st_t, out_t = model.net.scan_parallel(model.params, st0, c0, integrate_engine="tsmap")
     torch.cuda.synchronize()
     tsmap_launches = dict(sc.LAUNCHES)
     require(tsmap_launches == scan_launches(events=0, tsmap=1),
             f"ts-map path launches {tsmap_launches} for one single-window dispatch")
-    require(ep.LAUNCHES["conv_epilogue"] == EPILOGUES and tfs.LAUNCHES["fused_stem"] == STEMS,
-            f"ts-map path launched {ep.LAUNCHES['conv_epilogue']} conv epilogues and K6 "
-            f"{tfs.LAUNCHES['fused_stem']} times")
+    require(ep.LAUNCHES["conv_epilogue"] == EPILOGUES and tcp.LAUNCHES["conv_pool"] == C1S
+            and tfs.LAUNCHES["fused_stem"] == STEMS,
+            f"ts-map path launched {ep.LAUNCHES['conv_epilogue']} conv epilogues, K6 "
+            f"{tfs.LAUNCHES['fused_stem']} times and C1 {tcp.LAUNCHES['conv_pool']} times")
     require(bit_equal(st_t[0].surface, st_e[0].surface)
             and float((out_t - out_e).abs().max()) <= OUT_TOL,
             "ts-map engine's dispatch differs from the default engine's")
     print(f"tsmap-path: one {T_CHUNKS}-chunk dispatch through EventNetwork.scan_parallel("
           f"integrate_engine='tsmap'): surface bit-equal and outputs within {OUT_TOL} of "
           f"the default engine's; launches {tsmap_launches}, conv epilogue "
-          f"{ep.LAUNCHES['conv_epilogue']}, K6 {tfs.LAUNCHES['fused_stem']}", flush=True)
+          f"{ep.LAUNCHES['conv_epilogue']}, K6 {tfs.LAUNCHES['fused_stem']}, C1 "
+          f"{tcp.LAUNCHES['conv_pool']}", flush=True)
 
     # ---- 5. card against CPU -------------------------------------------------
     t_small = 16
@@ -3746,6 +3878,7 @@ def main() -> int:
     gather_copy = gather_copy_phase(dev)
     # phase 35 here: late in a long run the profiler's traces lose records
     epilogue = {**epilogue_phase(dev, smi), "launches": main_epilogues}  # the main path's
+    conv_pool = {**conv_pool_phase(dev, smi), "launches": main_conv_pools}
     stem_path_phase(model, c0, smi)
     tier_phase(dev, args, layer_defs, num_classes, num_bbox, c0, smi)
     kwargs = yolo_kwargs(args, layer_defs, num_classes, num_bbox, dev)
@@ -3800,7 +3933,7 @@ def main() -> int:
             "engine_scan_parallel": mesh["scan_launches"]["surface_scan_events_streams"],
             "mesh_pipeline": mesh["mesh"]["launches"]["surface_scan_events_streams"]}})
     print(json.dumps({"kernels": kernels + rulebook_kernels
-                      + [stem_kernel, gather_copy, epilogue]}))
+                      + [stem_kernel, gather_copy, epilogue, conv_pool]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -8,7 +8,9 @@ the kernel is ``torch.equal``: value for value, a zero's sign aside.  On
 the parallel path conv1 -> pool1 runs as the fused stem K6 instead
 (tests/test_torch_stem_route_chip.py), which rounds as cuDNN's conv and
 the pooled epilogue do, so a served dispatch is still the unfused layers'
-output value for value.
+output value for value: the fused conv + pool C1 runs a pooled 3x3 pair
+only where it gives cuDNN's conv and the pooled epilogue's numbers bit
+for bit (tests/test_torch_conv_pool_chip.py).
 
 No JAX here: the card's machine has none, so run it there without the
 tests' conftest:
@@ -22,7 +24,7 @@ import torch
 
 from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.network import EventNetwork
-from async_ev_cnn_torch.ops import epilogue, fused_stem
+from async_ev_cnn_torch.ops import conv_pool, epilogue, fused_stem
 from async_ev_cnn_torch.ops.conv import set_matmul_precision
 from async_ev_cnn_torch.utils.config import layers_dict
 
@@ -82,12 +84,18 @@ def test_one_forward_of_the_efcn_launches_k6_and_six_epilogues_and_a_step_none(c
     params = _params(net, card)
     state = net.init_state(params, card)
     frames = torch.rand(8, 1, H, W, device=card)
+    conv_stack.plan(net, card, frames=8)  # made first: its probes launch C1 and E1
     before = epilogue.LAUNCHES["conv_epilogue"]
     stems = fused_stem.LAUNCHES["fused_stem"]
+    fused = conv_pool.LAUNCHES["conv_pool"]
     net.full_frame_forward(params, state, frames)
     torch.cuda.synchronize()
-    # conv1 -> pool1 runs as the fused stem K6; conv2..conv7 take the epilogue
-    assert epilogue.LAUNCHES["conv_epilogue"] - before == 6
+    # conv1 -> pool1 runs as the fused stem K6; conv2 -> pool2 .. conv5 ->
+    # pool5 as the fused conv + pool C1 (cuDNN runs none of them as an FFT
+    # at 8 frames, so C1 gives its numbers); conv6 and conv7 take the
+    # epilogue
+    assert conv_pool.LAUNCHES["conv_pool"] - fused == 4
+    assert epilogue.LAUNCHES["conv_epilogue"] - before == 2
     assert fused_stem.LAUNCHES["fused_stem"] - stems == 1
     # params that track gradients take the kernel too, after each of the
     # seven convs: K6 has no backward
@@ -133,16 +141,21 @@ def test_a_served_dispatch_is_the_unfused_layers_output(card, monkeypatch):
                                  device=card)
         return [r.outputs for r in pipe.serve(items)], pipe.state
 
+    conv_stack.plan(net, card, frames=16)  # a dispatch's 2 x 8 frames, planned first
     before = epilogue.LAUNCHES["conv_epilogue"]
     stems = fused_stem.LAUNCHES["fused_stem"]
+    c1 = conv_pool.LAUNCHES["conv_pool"]
     fused, fused_state = serve()
-    # two dispatches: the fused stem K6 and six epilogues each
-    assert epilogue.LAUNCHES["conv_epilogue"] - before >= 2 * 6
-    assert fused_stem.LAUNCHES["fused_stem"] - stems >= 2
+    # two dispatches: each the fused stem K6, C1 on conv2, conv4 and conv5,
+    # and the epilogue after conv3 (cuDNN's FFT at 16 frames: C1 would not
+    # give its numbers), conv6 and conv7
+    assert conv_pool.LAUNCHES["conv_pool"] - c1 == 2 * 3
+    assert epilogue.LAUNCHES["conv_epilogue"] - before == 2 * 3
+    assert fused_stem.LAUNCHES["fused_stem"] - stems == 2
     monkeypatch.setattr(epilogue, "conv_epilogue", epilogue.conv_epilogue_plain)
     real = conv_stack.plan  # the CPU's plan: conv1 and pool1 unfused too
     monkeypatch.setattr(conv_stack, "plan",
-                        lambda net, device=None, grad=False: real(net, "cpu", grad))
+                        lambda net, device=None, grad=False, frames=None: real(net, "cpu", grad))
     plain, plain_state = serve()
     assert len(fused) == len(plain) == 2
     for a, b in zip(fused, plain):

@@ -1,17 +1,22 @@
 """Which conv+pool pairs of a 'full' network run as the fused stem K6
-(ops/fused_stem.py) and which keep cuDNN's conv and the pooled epilogue
+(ops/fused_stem.py), which as the fused conv + pool C1 (ops/conv_pool.py)
+and which keep cuDNN's conv and the pooled epilogue
 (layers/conv_stack.plan), and that the CPU path is unchanged.
 
 K6 takes a pair where it fuses under the epilogue, its conv reads one
 channel through a 3x3 SAME kernel at stride 1 into 1 to STEM_MAX_O
 channels over even dims, its output is kept for no route or head, the
 tensors are on the card and no gradient is needed; an active
-space-to-depth pair takes precedence.  The predicate is read here with a
-card device named, which needs no card.  On the CPU the path is the
-unfused layers' composition bit for bit, as before the route existed;
-the 'stem' route itself is run on the CPU by forcing it (the plan of a
-card in place of the CPU's), where K6's wrapper runs its plain version.
-Each route's run function is held to the layers it replaces, step by step.
+space-to-depth pair takes precedence.  C1 takes every other such 3x3
+pair with float32 activations at an IEEE float32 tier; the card's plan
+for a batch keeps a pair on cuDNN where a probe finds C1 would not give
+its numbers (faked here).  The predicate is read here with a card
+device named, which needs no card.  On the CPU the path is the unfused
+layers' composition bit for bit, as before the routes existed; the
+'stem' and 'conv_pool' routes themselves are run on the CPU by forcing
+them (the plan of a card in place of the CPU's), where the wrappers run
+their plain versions.  Each route's run function is held to the layers it
+replaces, step by step.
 """
 
 import weakref
@@ -27,6 +32,7 @@ from async_ev_cnn_torch.layers.maxpool import pool_step
 from async_ev_cnn_torch.layers.network import EventNetwork, needs_grad
 from async_ev_cnn_torch.layers.types import LayerIO
 from async_ev_cnn_torch.ops import conv as tconv
+from async_ev_cnn_torch.ops import conv_pool as tcp
 from async_ev_cnn_torch.ops import epilogue
 from async_ev_cnn_torch.ops import fused_stem as tf
 from async_ev_cnn_torch.ops import pool as tpool
@@ -84,30 +90,41 @@ def _stride_2_conv1(monkeypatch):
 # (id, how the net is built, the autograd setup, {conv of each pair: the kind it runs})
 PAIR_CASES = [
     ("efcn", lambda: _yml_net(EFCN_YML), None,
-     {"conv1": "stem", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
-      "conv5": "pooled"}),
+     {"conv1": "stem", "conv2": "conv_pool", "conv3": "conv_pool", "conv4": "conv_pool",
+      "conv5": "conv_pool"}),
     ("efcn_bf16", lambda: _yml_net(EFCN_YML, activation_dtype="bfloat16"), None,
      {"conv1": "stem", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
       "conv5": "pooled"}),
     ("yolov3_tiny", lambda: _yml_net(YOLO_YML, stem_fusion=False), None,
+     {"conv0": "stem", "conv2": "conv_pool", "conv4": "conv_pool", "conv6": "conv_pool"}),
+    ("yolov3_tiny_bf16", lambda: _yml_net(YOLO_YML, stem_fusion=False,
+                                          activation_dtype="bfloat16"), None,
      {"conv0": "stem", "conv2": "pooled", "conv4": "pooled", "conv6": "pooled"}),
     ("two_input_channels", lambda: _dsl_net("conv1=3,3,2,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2"),
-     None, {"conv1": "pooled", "conv2": "pooled"}),
+     None, {"conv1": "conv_pool", "conv2": "conv_pool"}),
     ("5x5_stem", lambda: _dsl_net("conv1=5,5,1,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2"), None,
-     {"conv1": "pooled", "conv2": "pooled"}),
+     {"conv1": "pooled", "conv2": "conv_pool"}),
+    ("1x1_pair", lambda: _dsl_net("conv1=3,3,1,8 pool1=2,2 conv2=1,1,8,8 pool2=2,2"), None,
+     {"conv1": "stem", "conv2": "pooled"}),
     ("alpha_0", lambda: _dsl_net("conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2", alpha=0.0),
      None, {}),
-    ("stride_2", "stride_2", None, {"conv1": "pooled", "conv2": "pooled"}),
+    ("stride_2", "stride_2", None, {"conv1": "pooled", "conv2": "conv_pool"}),
     ("stem_routed", lambda: _dsl_net(
         "conv1=3,3,1,4 pool1=2,2 conv2=3,3,4,8 pool2=2,2 route3=conv1 conv4=1,1,4,4"), None,
-     {"conv2": "pooled"}),
+     {"conv2": "conv_pool"}),
     ("o_past_the_struct", lambda: _dsl_net(
-        f"conv1=3,3,1,{tf.STEM_MAX_O + 1} pool1=2,2"), None, {"conv1": "pooled"}),
+        f"conv1=3,3,1,{tf.STEM_MAX_O + 1} pool1=2,2"), None, {"conv1": "conv_pool"}),
     ("odd_width", lambda: _dsl_net("conv1=3,3,1,8 pool1=2,2", w=33), None,
      {"conv1": "pooled"}),
+    ("odd_width_second_pair", lambda: _dsl_net(
+        "conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2", w=30), None,
+     {"conv1": "stem", "conv2": "pooled"}),
+    ("odd_height_second_pair", lambda: _dsl_net(
+        "conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2", h=26), None,
+     {"conv1": "stem", "conv2": "pooled"}),
     ("s2d_at_highest", lambda: _yml_net(EFCN_YML, stem_fusion=True), None,
-     {"conv1": "s2d", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
-      "conv5": "pooled"}),
+     {"conv1": "s2d", "conv2": "conv_pool", "conv3": "conv_pool", "conv4": "conv_pool",
+      "conv5": "conv_pool"}),
     ("autograd_params", lambda: _yml_net(EFCN_YML), "params",
      {"conv1": "pooled", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
       "conv5": "pooled"}),
@@ -115,8 +132,8 @@ PAIR_CASES = [
      {"conv1": "pooled", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
       "conv5": "pooled"}),
     ("params_track_grad_mode_off", lambda: _yml_net(EFCN_YML), "no_grad",
-     {"conv1": "stem", "conv2": "pooled", "conv3": "pooled", "conv4": "pooled",
-      "conv5": "pooled"}),
+     {"conv1": "stem", "conv2": "conv_pool", "conv3": "conv_pool", "conv4": "conv_pool",
+      "conv5": "conv_pool"}),
 ]
 
 
@@ -147,8 +164,9 @@ def test_each_pair_runs_the_kind_its_shape_and_device_give(monkeypatch, make, au
 
     assert kinds("cuda") == want
     assert kinds(torch.device("cuda", 0)) == want
-    # on the CPU no pair takes K6: the ones it would take keep the epilogue
-    assert kinds("cpu") == {n: "pooled" if k == "stem" else k for n, k in want.items()}
+    # on the CPU no pair takes K6 or C1: the ones they would take keep the epilogue
+    assert kinds("cpu") == {n: "pooled" if k in ("stem", "conv_pool") else k
+                            for n, k in want.items()}
     assert kinds(None) == kinds("cpu")
 
 
@@ -162,7 +180,7 @@ def _card_plan(monkeypatch):
     card gets, so K6's route runs its wrapper's plain version."""
     real = conv_stack.plan
     monkeypatch.setattr(conv_stack, "plan",
-                        lambda net, device=None, grad=False: real(net, "cuda", grad))
+                        lambda net, device=None, grad=False, frames=None: real(net, "cuda", grad))
 
 
 def unfused_walk(net, params, frames):
@@ -241,9 +259,13 @@ def _layerwise(params, step, x, kept):
     """What the walk computed for a step's layers before the plan existed,
     on the CPU: conv_step and pool_step one layer at a time ('conv',
     'pool', and 'pooled' composed), K6's plain version for a 'stem' pair,
-    fused_conv_pool for an 's2d' pair, the concatenation of a route, the
-    repeated values of an upsampling and a head's float32 grid."""
+    C1's for a 'conv_pool' pair, fused_conv_pool for an 's2d' pair, the
+    concatenation of a route, the repeated values of an upsampling and a
+    head's float32 grid."""
     ld = step.layers[0]
+    if step.route == "conv_pool":
+        return tcp.conv_pool_plain(x, params[f"w_{ld.name}"], params[f"b_{ld.name}"],
+                                   ld.spec.alpha)
     if step.route in ("stem", "s2d"):
         w, b = params[f"w_{ld.name}"], params[f"b_{ld.name}"]
         act = getattr(torch, step.layers[1].spec.act_dtype)
@@ -274,10 +296,11 @@ def _layerwise(params, step, x, kept):
 # (model, forced routes, the routes its plan takes)
 ROUTE_CASES = [
     ("efcn", "cpu", {"pooled", "conv"}),
-    ("efcn", "k6", {"stem", "pooled", "conv"}),
+    ("efcn", "k6", {"stem", "conv_pool", "pooled", "conv"}),  # conv5's map is 2x3
     ("efcn", "s2d", {"s2d", "pooled", "conv"}),
+    ("efcn", "s2d_k6", {"s2d", "conv_pool", "pooled", "conv"}),
     ("yolov3_tiny", "cpu", {"pooled", "conv", "pool", "route", "upsample", "yolo"}),
-    ("yolov3_tiny", "k6", {"stem", "pooled", "conv", "pool", "route", "upsample", "yolo"}),
+    ("yolov3_tiny", "k6", {"stem", "conv_pool", "conv", "pool", "route", "upsample", "yolo"}),
     ("yolov3_tiny", "s2d", {"s2d", "pooled", "conv", "pool", "route", "upsample", "yolo"}),
 ]
 
@@ -289,15 +312,15 @@ def test_each_route_is_the_layers_it_replaces(monkeypatch, model, force, routes)
     ``torch.equal`` to the same layers computed one at a time as before the
     plan existed; and the walk over the plan gives the composition's
     output.  'k6' forces the routes of a card, 's2d' fuses the stem by
-    space-to-depth (``stem_fusion=True`` at 'highest')."""
+    space-to-depth (``stem_fusion=True`` at 'highest'), 's2d_k6' both."""
     tconv.set_matmul_precision("highest")
     if model == "efcn":
         net = EventNetwork(layers_dict(_yml(EFCN_YML)["yolo_cnn_layers"]), 32, 48, 5e-5, 0.1,
-                           "SAME", conv_mode="full", stem_fusion=force == "s2d")
+                           "SAME", conv_mode="full", stem_fusion=force.startswith("s2d"))
         params, (h, w) = _params(net, seed=8), (32, 48)
     else:
         (net, params), (h, w) = _tiny_yolo(stem_fusion=force == "s2d"), (64, 64)
-    if force == "k6":
+    if force.endswith("k6"):
         _card_plan(monkeypatch)
     g = torch.Generator().manual_seed(12)
     frames = torch.rand(2, 1, h, w, generator=g) * (torch.rand(2, 1, h, w, generator=g) < 0.3)
@@ -329,7 +352,9 @@ def test_the_stem_branch_forced_on_the_cpu_is_k6s_plain_version(monkeypatch, act
     K6's tolerance of the unfused layers."""
     net = _dsl_net("conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,8 pool2=2,2 conv3=1,1,8,6",
                    h=20, w=28, activation_dtype=act_dtype)
-    assert _pairs(net, "cuda") == [("stem", 0), ("pooled", 2)]
+    # bf16 activations keep conv2's pair on cuDNN and the epilogue
+    second = "conv_pool" if act_dtype == "float32" else "pooled"
+    assert _pairs(net, "cuda") == [("stem", 0), (second, 2)]
     assert _pairs(net, "cpu") == [("pooled", 0), ("pooled", 2)]
     _card_plan(monkeypatch)
     params = _params(net, seed=2)
@@ -418,3 +443,121 @@ def test_the_wrapper_takes_host_weights_with_an_input_on_the_cpu():
     meta = torch.empty(9, 3, device="meta")
     with pytest.raises(ValueError, match="all lie on the CPU or all on the card"):
         tf.fused_stem(x, meta, b, 0.1)
+
+
+def test_the_conv_pool_branch_forced_on_the_cpu_runs_c1s_plain_version_in_its_span(
+        monkeypatch):
+    """The 'conv_pool' branch, run on the CPU: C1's plain version in a
+    ``conv.fused_pool`` span inside ``layer.conv2``, pool2 with no span of
+    its own, within C1's bound of the 'pooled' route; its packed weights
+    are made once, kept in the plan's step, and made again after a write
+    in place."""
+    net = _dsl_net("conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,12 pool2=2,2 conv3=1,1,12,6",
+                   h=20, w=28)
+    _card_plan(monkeypatch)
+    params = _params(net, seed=7)
+    state = net.init_state(params, "cpu")
+    frames = torch.rand(3, 1, 20, 28, generator=torch.Generator().manual_seed(7))
+    with profiling.recording():
+        profiling.clear()
+        got = net.full_frame_forward(params, state, frames, upto=4)
+        spans = profiling.recorded()
+    names = [s[0] for s in spans]
+    assert names == ["scan.conv_stack", "layer.conv1", "conv.stem", "layer.conv2",
+                     "conv.fused_pool"]
+    assert spans[4][3] == 3  # conv.fused_pool lies inside layer.conv2
+    stem_map = net.full_frame_forward(params, state, frames, upto=2)
+    w, b = params["w_conv2"], params["b_conv2"]
+    route = epilogue.conv_epilogue(tconv.conv2d_dense(stem_map, w, None, 1, "SAME"), b, 0.1,
+                                   pooled=True)
+    assert got.shape == route.shape == (3, 12, 5, 7)
+    assert bool(((got.double() - route.double()).abs()
+                 <= tcp.c1_bound(stem_map, w, b, got)).all())
+    step = next(s for s in conv_stack.plan(net, "cpu") if s.route == "conv_pool")
+    packed = step.weights["conv2"][-1]
+    assert torch.equal(packed.w[:8, :, :12], w.permute(1, 2, 3, 0).reshape(8, 9, 12))
+    net.full_frame_forward(params, state, frames)
+    assert step.weights["conv2"][-1] is packed  # found, not made again
+    with torch.no_grad():
+        w.mul_(0.5)
+    net.full_frame_forward(params, state, frames)
+    assert step.weights["conv2"][-1] is not packed
+
+
+@pytest.mark.parametrize("c1_is", ["the_library", "one_ulp_off", "wrong"])
+def test_the_probe_tells_where_c1_gives_the_librarys_numbers(monkeypatch, c1_is):
+    """``c1_gives_the_library`` runs C1 and the 'pooled' route once on a
+    seeded probe of the batch's shape (here on the CPU, C1 replaced by the
+    library itself, by the library one ulp off, or by the library off by
+    1e-4 of its largest value): True where the two agree bit for bit,
+    False where C1 differs within its bounds, and it raises where C1 is at
+    fault.  The probe's launches are counted as any other."""
+    net = _dsl_net("conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,12 pool2=2,2", h=20, w=28)
+    spec = next(ld.spec for ld in net.event_layers if ld.name == "conv2")
+    calls = []
+
+    def c1(x, kernel, bias, alpha=0.1, packed=None):
+        calls.append(tuple(x.shape))
+        tcp.LAUNCHES["conv_pool"] += 1
+        lib = conv_stack.full_conv(spec, kernel, bias, x, pooled=True)
+        if c1_is == "one_ulp_off":
+            return torch.nextafter(lib, lib + 1)
+        return lib + 1e-4 * lib.abs().max() if c1_is == "wrong" else lib
+
+    monkeypatch.setattr(tcp, "conv_pool", c1)
+    tcp.reset_launches()
+    if c1_is == "wrong":
+        with pytest.raises(RuntimeError, match="the kernel is at fault"):
+            conv_stack.c1_gives_the_library(spec, 3, "cpu")
+    else:
+        assert conv_stack.c1_gives_the_library(spec, 3, "cpu") is (c1_is == "the_library")
+    assert calls == [(3, 8, 10, 14)] and tcp.LAUNCHES["conv_pool"] == 1
+    tcp.reset_launches()
+
+
+def test_a_card_plan_for_a_batch_keeps_the_pooled_route_where_the_probe_finds_c1_differs(
+        monkeypatch):
+    """The plan of a card for a batch of frames: each pair that C1 may run
+    is probed once for the batch, as the plan is made; a pair where C1
+    would not give the library's numbers takes the 'pooled' route, so the
+    plan says what runs.  A plan without a batch, the CPU's and one under
+    autograd probe nothing."""
+    net = _dsl_net("conv1=3,3,1,8 pool1=2,2 conv2=3,3,8,12 pool2=2,2 conv3=3,3,12,16 pool3=2,2",
+                   h=24, w=32)
+    probed = []
+
+    def probe(spec, frames, device):
+        probed.append((spec.out_channels, frames, device))
+        return spec.out_channels == 12 or frames < 4
+
+    monkeypatch.setattr(conv_stack, "c1_gives_the_library", probe)
+
+    def routes(device, grad=False, frames=None):
+        return [(s.route, s.start) for s in conv_stack.plan(net, device, grad, frames)
+                if len(s.layers) == 2]
+
+    assert routes("cuda") == [("stem", 0), ("conv_pool", 2), ("conv_pool", 4)]
+    assert probed == []
+    card = torch.device("cuda", 0)
+    assert routes(card, frames=8) == [("stem", 0), ("conv_pool", 2), ("pooled", 4)]
+    assert probed == [(12, 8, card), (16, 8, card)]
+    assert conv_stack.plan(net, card, frames=8) is conv_stack.plan(net, card, frames=8)
+    assert routes(card, frames=2) == [("stem", 0), ("conv_pool", 2), ("conv_pool", 4)]
+    assert len(probed) == 4  # each batch probes once
+    assert routes(card, grad=True, frames=8) == [("pooled", 0), ("pooled", 2), ("pooled", 4)]
+    assert routes("cpu", frames=8) == [("pooled", 0), ("pooled", 2), ("pooled", 4)]
+    assert len(probed) == 4
+
+
+def test_at_the_tf32_tier_the_pairs_keep_the_pooled_route():
+    """C1 sums in IEEE float32; at the 'default' tier cuDNN's convs run in
+    TF32, so no pair takes C1 there: the plan says 'pooled'."""
+    net = _yml_net(EFCN_YML)
+    try:
+        tconv.set_matmul_precision("default")
+        assert _pairs(net, "cuda")[1:] == [("pooled", 2), ("pooled", 4), ("pooled", 6),
+                                           ("pooled", 8)]
+    finally:
+        tconv.set_matmul_precision("highest")
+    assert _pairs(net, "cuda")[1:] == [("conv_pool", 2), ("conv_pool", 4), ("conv_pool", 6),
+                                       ("conv_pool", 8)]

@@ -10,7 +10,11 @@ the paths run).  Its pooled map is held within ``K6_TOL * (1 + max|ref|)``
 of the unfused library stem (conv2d_dense -> leaky -> maxpool_dense), and
 each network's output within 1e-6 of its largest magnitude of the same
 network with the stem left to cuDNN and the epilogue (which equals the
-unfused layers bit for bit, tests/test_torch_conv_epilogue_chip.py).
+unfused layers bit for bit, tests/test_torch_conv_epilogue_chip.py).  The
+other pooled 3x3 pairs run as the fused conv + pool C1 on the card where
+it gives cuDNN's and the epilogue's numbers bit for bit, and keep them
+elsewhere (tests/test_torch_conv_pool_chip.py), so the network's other
+side, the CPU's plan, may leave them all to cuDNN and the epilogue.
 
 No JAX here: run it on the card's machine without the tests' conftest:
 
@@ -22,6 +26,7 @@ import torch
 
 from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.network import EventNetwork
+from async_ev_cnn_torch.ops import conv_pool as cp
 from async_ev_cnn_torch.ops import epilogue
 from async_ev_cnn_torch.ops import fused_stem as tf
 from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky, set_matmul_precision
@@ -76,7 +81,7 @@ def _without_k6(monkeypatch):
     cuDNN's conv and the pooled epilogue."""
     real = conv_stack.plan
     monkeypatch.setattr(conv_stack, "plan",
-                        lambda net, device=None, grad=False: real(net, "cpu", grad))
+                        lambda net, device=None, grad=False, frames=None: real(net, "cpu", grad))
 
 
 def _rel(a, b) -> float:
@@ -86,23 +91,28 @@ def _rel(a, b) -> float:
 def _counted(fn):
     tf.reset_launches()
     epilogue.reset_launches()
+    cp.reset_launches()
     out = fn()
     torch.cuda.synchronize()
     return out, tf.LAUNCHES["fused_stem"], epilogue.LAUNCHES["conv_epilogue"]
 
 
-def _check_network(net, params, frames, monkeypatch, want_epilogues):
+def _check_network(net, params, frames, monkeypatch, want_epilogues, want_c1):
     state = net.init_state(params, frames.device)
+    # the card's plan for the batch, made first: its probes launch C1 and E1
+    conv_stack.plan(net, frames.device, frames=frames.shape[0])
     stem, k6, e1 = _counted(lambda: net.full_frame_forward(params, state, frames, upto=2))
     assert (k6, e1) == (1, 0)
     lib = _library_stem(net, params, frames)
     assert stem.shape == lib.shape
     assert float((stem - lib).abs().max()) <= K6_TOL * (1 + float(lib.abs().max()))
     got, k6, e1 = _counted(lambda: net.full_frame_forward(params, state, frames))
-    assert (k6, e1) == (1, want_epilogues)
+    # each pooled 3x3 pair runs C1 or, where C1's sums are not cuDNN's at
+    # this batch, cuDNN's conv and the epilogue
+    assert (k6, e1, cp.LAUNCHES["conv_pool"]) == (1, want_epilogues, want_c1)
     _without_k6(monkeypatch)
     want, k6, e1 = _counted(lambda: net.full_frame_forward(params, state, frames))
-    assert (k6, e1) == (0, want_epilogues + 1)
+    assert (k6, e1, cp.LAUNCHES["conv_pool"]) == (0, want_epilogues + want_c1 + 1, 0)
     for a, b in zip(got if net.heads else (got,), want if net.heads else (want,)):
         assert a.shape == b.shape and _rel(a, b) <= OUT_REL
 
@@ -110,7 +120,8 @@ def _check_network(net, params, frames, monkeypatch, want_epilogues):
 @pytest.mark.chip
 def test_the_efcn_stem_runs_k6_within_its_tolerance_of_the_library_stem(card, monkeypatch):
     net = EventNetwork(layers_dict(EFCN), 160, 224, 5e-5, 0.1, "SAME", conv_mode="full")
-    _check_network(net, _params(net, card), _frames(64, 160, 224, card), monkeypatch, 6)
+    # at 64 frames cuDNN runs conv3 and conv4 as an FFT: they keep it
+    _check_network(net, _params(net, card), _frames(64, 160, 224, card), monkeypatch, 4, 2)
 
 
 @pytest.mark.chip
@@ -121,7 +132,7 @@ def test_the_yolov3_tiny_stem_runs_k6_at_416(card, monkeypatch):
                        stem_fusion=False)
     # conv0, conv2, conv4 and conv6 pair with their pools; conv8's map is routed
     _check_network(net, _params(net, card, seed=3, he=True), _frames(4, 416, 416, card),
-                   monkeypatch, 12)
+                   monkeypatch, 9, 3)
 
 
 @pytest.mark.chip
@@ -135,10 +146,12 @@ def test_under_autograd_the_stem_keeps_the_epilogue(card):
     assert (k6, e1) == (0, 7) and out.requires_grad
     out.sum().backward()
     assert tracked["w_conv1"].grad is not None
-    # grad mode off: the same tracked params take K6
+    # grad mode off: the same tracked params take K6, and C1 for conv2-conv5
+    # (cuDNN runs none of them as an FFT at 8 frames)
+    conv_stack.plan(net, card, frames=8)
     with torch.no_grad():
         _, k6, e1 = _counted(lambda: net.full_frame_forward(tracked, state, frames))
-    assert (k6, e1) == (1, 6)
+    assert (k6, e1, cp.LAUNCHES["conv_pool"]) == (1, 2, 4)
 
 
 @pytest.mark.chip
@@ -161,7 +174,7 @@ def test_a_dispatch_makes_no_copy_of_the_weights_and_waits_for_nothing(card):
     state = net.init_state(params, card)
     first = net.full_frame_forward(params, state, frames)  # makes the host weights
     # the stem step of the card's plan, which the network keeps
-    weights = next(s.weights for s in conv_stack.plan(net, card) if s.route == "stem")
+    weights = next(s.weights for s in conv_stack.plan(net, card, frames=8) if s.route == "stem")
     entry = weights["conv1"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

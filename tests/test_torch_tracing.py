@@ -409,6 +409,23 @@ def test_the_replay_readers_take_device_time_a_dispatch(program):
     assert _reader("epilogue_ms.replay").read(rec) == pytest.approx(42 / 2 / 1e6)
 
 
+def test_the_fused_pool_reader_takes_c1s_device_time_a_dispatch(program):
+    program += [
+        _span("serve.dispatch", 1000, 1400, 0), _span("layer.conv2", 1010, 1100, 0, 0),
+        _span("conv.fused_pool", 1010, 1100, 0, 1), _span("layer.conv3", 1100, 1200, 0, 0),
+        _span("conv.fused_pool", 1100, 1200, 0, 3), _span("layer.conv6", 1200, 1300, 0, 0),
+        _span("conv.leaky", 1250, 1300, 0, 5),
+        _span("serve.dispatch", 1500, 1900, 1), _span("conv.fused_pool", 1510, 1600, 1, 7),
+    ]
+    device = [("c1", 1100, 1300, 1020), ("c1", 1300, 1400, 1150), ("e1", 1400, 1410, 1260),
+              ("c1", 1600, 1700, 1520)]
+    rec, _ = _record(program, device=device)
+    assert _reader("fused_pool_ms.replay").read(rec) == pytest.approx((300 + 100) / 2 / 1e6)
+    # a program without C1 records no such span: nothing to read, no 0
+    program[:] = [s for s in program if s[0] != "conv.fused_pool"]
+    assert _reader("fused_pool_ms.replay").read(rec) is None
+
+
 def test_the_live_readers_take_the_median_host_time_a_dispatch(program):
     for k, (admit, launch) in enumerate([(10, 100), (30, 300), (20, 200)]):
         t = 1000 + 300 * k
@@ -441,7 +458,8 @@ def test_the_idle_readers_name_the_gaps(program):
 
 def test_the_readers_read_nothing_without_the_recorder_or_the_card(program, monkeypatch):
     program.append(_span("serve.dispatch", 1000, 1400, 0))
-    names = ["stem_ms.replay", "epilogue_ms.replay", "pack_ms_per_dispatch.live",
+    names = ["stem_ms.replay", "epilogue_ms.replay", "fused_pool_ms.replay",
+             "pack_ms_per_dispatch.live",
              "launch_ms_per_dispatch.live", "host_syncs_per_chunk.async",
              "idle_unnamed_share.live"]
     rec, _ = _record(program, device=[])  # a CPU trace: no device records

@@ -17,8 +17,9 @@ No JAX here: run it on the card's machine without the tests' conftest:
 import pytest
 import torch
 
+from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.network import EventNetwork
-from async_ev_cnn_torch.ops import epilogue, fused_stem
+from async_ev_cnn_torch.ops import conv_pool, epilogue, fused_stem
 from async_ev_cnn_torch.ops.conv import set_matmul_precision
 from async_ev_cnn_torch.ops.pool import maxpool_dense
 from async_ev_cnn_torch.utils.config import layers_dict
@@ -85,14 +86,18 @@ def test_one_forward_of_the_published_network_is_the_reference(card):
     params = fold_batchnorm(w)
     frames = torch.rand(4, 1, 416, 416, generator=g, device=card) * (
         torch.rand(4, 1, 416, 416, generator=g, device=card) < 0.1)
+    conv_stack.plan(net, card, frames=4)  # made first: its probes launch C1 and E1
     before = epilogue.LAUNCHES["conv_epilogue"]
     stems = fused_stem.LAUNCHES["fused_stem"]
+    fused = conv_pool.LAUNCHES["conv_pool"]
     got = net.full_frame_forward(params, net.init_state(params, card), frames)
     torch.cuda.synchronize()
-    # the fused stem K6 (conv0 -> pool1), three pooled epilogues (conv2/4/6)
-    # and nine unpooled
+    # the fused stem K6 (conv0 -> pool1), the fused conv + pool C1 (conv2/4/6
+    # and their pools: cuDNN's implicit GEMMs at this batch, whose numbers
+    # C1 gives) and nine unpooled epilogues
     assert fused_stem.LAUNCHES["fused_stem"] - stems == 1
-    assert epilogue.LAUNCHES["conv_epilogue"] - before == 12
+    assert conv_pool.LAUNCHES["conv_pool"] - fused == 3
+    assert epilogue.LAUNCHES["conv_epilogue"] - before == 9
     want = ref.forward(frames, w, layers)
     for a, b in zip(got, want):
         assert a.shape == b.shape
