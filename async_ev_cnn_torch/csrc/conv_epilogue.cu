@@ -16,6 +16,8 @@
 // act(v) = max(v, v * alpha), by a max that passes NaN through, as
 // torch.maximum and F.max_pool2d do.  out is f32, or bf16 rounded to nearest
 // even as Tensor.to(torch.bfloat16) rounds (a template parameter).
+// The SiLU form (silu = 1, unpooled only: SiLU is not monotone) gives
+// act(v) = v / (1 + expf(-v)), F.silu's arithmetic, for YOLOX's convs.
 //
 // Exact, not close: for 0 < alpha <= 1, v -> fl(v + b), v -> max(v, fl(v *
 // alpha)) and the rounding to bf16 are each nondecreasing (round to nearest
@@ -67,6 +69,18 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 __device__ __forceinline__ float act(float v, float b, float alpha) {
   v = __fadd_rn(v, b);
   return max_nan(v, __fmul_rn(v, alpha));
+}
+
+__device__ __forceinline__ float silu(float v, float b) {
+  v = __fadd_rn(v, b);
+  return __fdiv_rn(v, __fadd_rn(1.0f, expf(-v)));
+}
+
+// the unpooled pass's activation: leaky, or SiLU (alpha unused)
+template <bool kSilu>
+__device__ __forceinline__ float act_of(float v, float b, float alpha) {
+  if constexpr (kSilu) return silu(v, b);
+  return act(v, b, alpha);
 }
 
 // float -> bf16 bits, to nearest even, NaN to the quiet NaN (c10::BFloat16's rule)
@@ -136,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // four consecutive elements a thread, of n: one 16-byte load (kVector) or
 // four scalar loads, the last item cut at n
-template <bool kVector, typename Out>
+template <bool kVector, bool kSilu, typename Out>
 __global__ void __launch_bounds__(kThreads)
     act_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ bias,
                         Out* __restrict__ out, uint64_t n, uint32_t plane_size,
@@ -156,11 +170,11 @@ __global__ void __launch_bounds__(kThreads)
   }
   if constexpr (kVector) {
     const float4 v = __ldcs(reinterpret_cast<const float4*>(x + e));
-    store4(out + e, act(v.x, b[0], alpha), act(v.y, b[1], alpha), act(v.z, b[2], alpha),
-           act(v.w, b[3], alpha));
+    store4(out + e, act_of<kSilu>(v.x, b[0], alpha), act_of<kSilu>(v.y, b[1], alpha),
+           act_of<kSilu>(v.z, b[2], alpha), act_of<kSilu>(v.w, b[3], alpha));
   } else {
     for (int k = 0; k < 4 && e + k < n; ++k)
-      store1(out + e + k, act(__ldcs(x + e + k), b[k], alpha));
+      store1(out + e + k, act_of<kSilu>(__ldcs(x + e + k), b[k], alpha));
   }
 }
 
@@ -170,9 +184,23 @@ bool aligned(const void* p, uintptr_t bytes) {
 
 uint32_t blocks(uint32_t items) { return items / kThreads + (items % kThreads != 0); }
 
+template <bool kSilu, typename Out>
+void launch_act(const float* x, const float* bias, Out* out, uint64_t n, uint32_t plane_size,
+                uint32_t channels, float alpha, cudaStream_t stream) {
+  const uint32_t items = static_cast<uint32_t>((n + 3) / 4);
+  if (n % 4 == 0 && aligned(x, 16) && aligned(out, 4 * sizeof(Out))) {
+    act_epilogue_kernel<true, kSilu, Out><<<blocks(items), kThreads, 0, stream>>>(
+        x, bias, out, n, plane_size, channels, alpha);
+  } else {
+    act_epilogue_kernel<false, kSilu, Out><<<blocks(items), kThreads, 0, stream>>>(
+        x, bias, out, n, plane_size, channels, alpha);
+  }
+}
+
 template <typename Out>
 int launch(const float* x, const float* bias, Out* out, uint64_t planes, uint32_t channels,
-           uint32_t h, uint32_t wd, float alpha, bool pooled, cudaStream_t stream) {
+           uint32_t h, uint32_t wd, float alpha, bool pooled, bool silu,
+           cudaStream_t stream) {
   if (pooled) {
     const uint32_t ho = h / 2, wo = wd / 2;
     if (ho == 0 || wo == 0) return static_cast<int>(cudaSuccess);
@@ -190,16 +218,10 @@ int launch(const float* x, const float* bias, Out* out, uint64_t planes, uint32_
       pool_epilogue_kernel<1, Out><<<blocks(items), kThreads, 0, stream>>>(
           x, bias, out, items, wo, ho, channels, h, wd, wo, alpha);
     }
+  } else if (silu) {
+    launch_act<true>(x, bias, out, planes * h * wd, h * wd, channels, alpha, stream);
   } else {
-    const uint64_t n = planes * h * wd;
-    const uint32_t items = static_cast<uint32_t>((n + 3) / 4);
-    if (n % 4 == 0 && aligned(x, 16) && aligned(out, 4 * sizeof(Out))) {
-      act_epilogue_kernel<true, Out><<<blocks(items), kThreads, 0, stream>>>(
-          x, bias, out, n, h * wd, channels, alpha);
-    } else {
-      act_epilogue_kernel<false, Out><<<blocks(items), kThreads, 0, stream>>>(
-          x, bias, out, n, h * wd, channels, alpha);
-    }
+    launch_act<false>(x, bias, out, planes * h * wd, h * wd, channels, alpha, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -208,14 +230,15 @@ int launch(const float* x, const float* bias, Out* out, uint64_t planes, uint32_
 
 extern "C" int conv_epilogue(const float* x, const float* bias, void* out, long long planes,
                              int channels, int h, int wd, float alpha, int pooled,
-                             int out_bf16, cudaStream_t stream) {
+                             int out_bf16, int silu, cudaStream_t stream) {
   if (planes < 1 || channels < 1 || planes % channels != 0 || h < 1 || wd < 1 ||
       static_cast<long long>(h) * wd > 0xffffffffLL ||
-      planes * h * wd > (1LL << 34) - 4 || (pooled && !(alpha > 0.0f && alpha <= 1.0f)))
+      planes * h * wd > (1LL << 34) - 4 || (pooled && !(alpha > 0.0f && alpha <= 1.0f)) ||
+      (pooled && silu))
     return static_cast<int>(cudaErrorInvalidValue);
   if (out_bf16)
     return launch(x, bias, static_cast<Bf16*>(out), planes, channels, h, wd, alpha,
-                  pooled != 0, stream);
+                  pooled != 0, silu != 0, stream);
   return launch(x, bias, static_cast<float*>(out), planes, channels, h, wd, alpha,
-                pooled != 0, stream);
+                pooled != 0, silu != 0, stream);
 }

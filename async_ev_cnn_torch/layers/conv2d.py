@@ -71,12 +71,17 @@ class ConvSpec(NamedTuple):
     ksize: tuple[int, int]
     stride: int
     alpha: float
-    padding: str  # 'SAME' | 'VALID'
+    padding: str  # 'SAME' | 'VALID' | 'HALF' (k // 2 a side: a strided 'full' conv)
     # 'dense' | 'sparse' | 'sparse_pallas' | 'sparse_rows' | 'window' | 'full'
     mode: str = "dense"
     capacity_frac: float = 0.25  # sparse rulebook capacity as out-site fraction
     window_frac: float = 0.25  # window-mode extent as a fraction of each axis
     act_dtype: str = "float32"  # 'full'-mode activation storage dtype
+
+    @property
+    def act(self) -> str:
+        """The activation: leaky, ``max(v, v * alpha)``."""
+        return "leaky"
 
     @property
     def capacity(self) -> int:
@@ -113,6 +118,17 @@ class ConvSpec(NamedTuple):
         _, h, w = self.in_shape
         oh, ow = conv_out_shape(h, w, *self.ksize, self.stride, self.padding)
         return (self.out_channels, oh, ow)
+
+
+class SiluConvSpec(ConvSpec):
+    """A 'full' conv whose activation is SiLU, ``v * sigmoid(v)`` (YOLOX's
+    conv + folded batch norm + SiLU); ``alpha`` is unused."""
+
+    __slots__ = ()
+
+    @property
+    def act(self) -> str:
+        return "silu"
 
 
 def _count(counts, key: str, n: int = 1) -> None:

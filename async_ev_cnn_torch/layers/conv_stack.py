@@ -7,16 +7,22 @@ Each route runs in a frame of its own, so that no name in the walk keeps
 a map alive past the step that replaces it.  The walk looks :func:`plan`
 up here at each call: a test forces another device's routes by replacing
 it.
+
+RVT's layers run alone, one route each ('embed', 'attn', 'lstm', 'csp',
+'yolox'), over :mod:`async_ev_cnn_torch.ops.rvt`.  Their maps between
+steps may be channels-last in memory (``[N, C, H, W]`` views of ``[N, H,
+W, C]`` tensors); a conv that E1 finishes takes its input contiguous.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
 
-from async_ev_cnn_torch.layers.types import LayerIO
-from async_ev_cnn_torch.ops import conv_pool, epilogue, fused_stem, stem
+from async_ev_cnn_torch.layers.types import LayerIO, LstmState
+from async_ev_cnn_torch.ops import conv_pool, epilogue, fused_stem, layer_norm, rvt, stem
 from async_ev_cnn_torch.ops.conv import conv2d_dense, tier_uses_tf32
 from async_ev_cnn_torch.ops.pool import maxpool_dense
 
@@ -32,6 +38,18 @@ class Step(NamedTuple):
     start: int
     layers: tuple
     weights: dict | None = None
+
+
+class Maps(dict):
+    """The maps that a later route or head reads, by layer name; and the
+    walk's recurrent context: ``lead``, the frames' (streams, time steps),
+    time-major (frame ``t * S + s``), and ``state``, the network's state as
+    a list, whose LSTM entries the 'lstm' route replaces."""
+
+    def __init__(self, lead: tuple[int, int], state):
+        super().__init__()
+        self.lead = lead
+        self.state = list(state)
 
 
 def plan(net, device=None, grad: bool = False, frames: int | None = None) -> tuple[Step, ...]:
@@ -64,6 +82,39 @@ def plan(net, device=None, grad: bool = False, frames: int | None = None) -> tup
     return steps
 
 
+#: the memory model's allowance (``EventNetwork.parallel_transient_bytes``)
+#: for the workspace of a conv whose algorithm cuDNN times
+#: (:func:`timed_algorithms`), beside its input and output
+TIMED_WORKSPACE_BYTES = 1 << 30
+
+
+def timed(ld) -> bool:
+    """Whether cuDNN times the algorithms of layer ``ld``'s convs
+    (:func:`timed_algorithms`): RVT's strided embeddings and YOLOX's SiLU
+    convs, a CSP layer's included.  cuDNN's heuristic gives the YOLOX
+    head's 3x3 128-channel SiLU convs over 1,024 frames an FFT 3.5x slower
+    than its implicit GEMM.  The leaky convs (the eFCN's, YOLOv3-tiny's and
+    YOLOX's linear outputs) keep the heuristic's choice, and with it their
+    numbers."""
+    return ld.kind in ("embed", "csp") or getattr(ld.spec, "act", None) == "silu"
+
+
+@contextmanager
+def timed_algorithms(on: bool):
+    """Runs its block with cuDNN choosing each conv's algorithm by timing
+    the candidates (``cudnn.benchmark``, once per shape) where ``on``; the
+    flag is put back after."""
+    if not on:
+        yield
+        return
+    flag = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = flag
+
+
 def _pair_route(net, layers, i: int, card: bool, s2d: bool) -> str | None:
     """The route of a pair that starts at layer ``i``, or None where the
     layer runs alone.  's2d' (one space-to-depth conv, ``ops/stem.py``)
@@ -86,7 +137,8 @@ def _pair_route(net, layers, i: int, card: bool, s2d: bool) -> str | None:
     c, p = conv.spec, pool.spec
     if not (conv.kind == "conv" and pool.kind == "pool" and conv.name not in net._keep
             and c.mode == p.mode == "full" and tuple(p.ksize) == (2, 2) and p.stride == 2
-            and c.act_dtype == p.act_dtype and epilogue.pools_exactly(c.alpha)):
+            and c.act_dtype == p.act_dtype and c.act == "leaky"
+            and epilogue.pools_exactly(c.alpha)):
         return None
     if card and stem.s2d_pair_applicable(c, p):
         if c.in_shape[0] == 1 and 1 <= c.out_channels <= fused_stem.STEM_MAX_O:
@@ -140,11 +192,14 @@ def c1_gives_the_library(spec, frames: int, device) -> bool:
 def full_conv(spec, kernel, bias, x, pooled: bool = False) -> torch.Tensor:
     """A 'full' conv of ``x`` (the 'conv' and 'pooled' routes, and the
     sequential engine's 'full' conv): cuDNN's conv, then its bias, the
-    activation, the cast to ``spec.act_dtype`` (to nearest even, as
-    ``astype`` rounds to bf16) and, ``pooled``, the 2x2 pool, in one
-    :func:`~async_ev_cnn_torch.ops.epilogue.conv_epilogue`."""
-    return epilogue.conv_epilogue(conv2d_dense(x, kernel, None, spec.stride, spec.padding),
-                                  bias, spec.alpha, spec.act_dtype, pooled=pooled)
+    activation (``spec.act``), the cast to ``spec.act_dtype`` (to nearest
+    even, as ``astype`` rounds to bf16) and, ``pooled``, the 2x2 pool, in
+    one :func:`~async_ev_cnn_torch.ops.epilogue.conv_epilogue`."""
+    with timed_algorithms(spec.act == "silu"):
+        raw = conv2d_dense(x.contiguous(), kernel, None, spec.stride, spec.padding)
+    if spec.act != "leaky":
+        return epilogue.conv_epilogue(raw, bias, spec.alpha, spec.act_dtype, act=spec.act)
+    return epilogue.conv_epilogue(raw, bias, spec.alpha, spec.act_dtype, pooled=pooled)
 
 
 def full_pool(spec, x) -> torch.Tensor:
@@ -221,7 +276,79 @@ def run_yolo(net, params, step, x, kept):
     return kept[step.layers[0].spec.source].movedim(-3, -1).float()
 
 
+def run_embed(net, params, step, x, kept):
+    """RVT's patch embedding: the strided conv (no bias), then the
+    LayerNorm over channels (L1, which reads the conv's map in whichever
+    layout cuDNN gave it); channels-last in memory."""
+    ld = step.layers[0]
+    with timed_algorithms(True):
+        y = conv2d_dense(x, params[f"w_{ld.name}"], None, ld.spec.stride, "HALF")
+    y = layer_norm.layer_norm(y.permute(0, 2, 3, 1), params[f"ln_g_{ld.name}"],
+                              params[f"ln_b_{ld.name}"], rvt.LN_EPS)
+    return y.permute(0, 3, 1, 2)
+
+
+def run_attn(net, params, step, x, kept):
+    """A MaxViT pair over every frame, added into the map in place (into a
+    copy where a later route reads the map)."""
+    ld = step.layers[0]
+    y = x.permute(0, 2, 3, 1)
+    if not y.is_contiguous():
+        y = y.contiguous()
+    elif any(y.data_ptr() == k.data_ptr() for k in kept.values()):
+        y = y.clone()
+    return rvt.maxvit_pair(y, params, ld.name, ld.spec).permute(0, 3, 1, 2)
+
+
+def run_lstm(net, params, step, x, kept):
+    """The ConvLSTM as a scan over the time steps of ``kept.lead`` (the
+    frames time-major), from the layer's state in ``kept.state``, which it
+    replaces; counts the steps in ``net.layer_counts``."""
+    ld = step.layers[0]
+    s, t = kept.lead
+    c, h, w = ld.spec.in_shape
+    st = kept.state[1 + step.start]
+    shape = st.h.shape
+
+    def rows(m):  # a state map [(S,) C, H, W] as [S * H * W, C]
+        return m.reshape(s, c, h * w).transpose(1, 2).reshape(s * h * w, c)
+
+    seq, hn, cn = rvt.lstm_scan(x.permute(0, 2, 3, 1).reshape(t, s * h * w, c),
+                                rows(st.h), rows(st.c), params[f"w_{ld.name}"],
+                                params[f"b_{ld.name}"])
+
+    def back(m):  # [S * H * W, C] -> the state's shape, channels-last in memory
+        return m.view(s, h, w, c).permute(0, 3, 1, 2).reshape(shape)
+
+    kept.state[1 + step.start] = LstmState(back(hn), back(cn))
+    net.layer_counts[ld.name]["recurrent_steps"] += t
+    return seq.view(t * s, h, w, c).permute(0, 3, 1, 2)
+
+
+def run_csp(net, params, step, x, kept):
+    """YOLOX's CSP layer: each conv cuDNN's, finished by E1's SiLU form."""
+    ld = step.layers[0]
+    convs = ld.spec.convs
+
+    def conv(key, m):
+        return full_conv(convs[key], params[f"w_{ld.name}_{key}"], params[f"b_{ld.name}_{key}"],
+                         m)
+
+    a, b = conv("c1", x), conv("c2", x)
+    for i in range(ld.spec.depth):
+        a = conv(f"m{i}b", conv(f"m{i}a", a))
+    return conv("c3", torch.cat([a, b], dim=-3))
+
+
+def run_yolox(net, params, step, x, kept):
+    """A YOLOX level's raw output ``[N, h, w, 4 + 1 + classes]``: its box,
+    objectness and class maps, channels last; the walk's map stays ``x``."""
+    parts = [kept[name] for name in step.layers[0].spec.sources]
+    return torch.cat(parts, dim=-3).movedim(-3, -1).float()
+
+
 #: each route's function
 RUNS = {"s2d": run_s2d, "stem": run_stem, "conv_pool": run_conv_pool, "pooled": run_pooled,
         "conv": run_conv, "pool": run_pool, "route": run_route, "upsample": run_upsample,
-        "yolo": run_yolo}
+        "yolo": run_yolo, "embed": run_embed, "attn": run_attn, "lstm": run_lstm,
+        "csp": run_csp, "yolox": run_yolox}

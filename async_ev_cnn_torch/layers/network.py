@@ -20,6 +20,18 @@ whose stride is below their size, and linear convs.  Only the parallel
 engine runs such a network (every layer 'full'): the sequential engine
 propagates events along a chain.  It then returns one grid per ``yolo``
 layer.
+
+It describes RVT too (Gehrig & Scaramuzza 2023), a recurrent vision
+transformer with a YOLOX neck and head: ``embed`` (a strided conv and a
+LayerNorm), ``attn`` (a MaxViT window/grid attention pair), ``lstm`` (a
+ConvLSTM), ``csp`` (YOLOX's CSP layer), strided and SiLU convs and
+``yolox`` outputs.  Only the parallel engine runs them.  An LSTM's state
+``(h, c)`` is the network's one state beside the surface: the walk runs
+the ``S x T`` frames of a dispatch layer-major, each stage's other layers
+over every frame at once and its LSTM as a scan over ``T`` with batch
+``S`` (:mod:`async_ev_cnn_torch.ops.rvt`), and :meth:`EventNetwork.
+scan_parallel` carries the state from window to window and dispatch to
+dispatch.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ from typing import Any, NamedTuple
 import torch
 
 from async_ev_cnn_torch.layers import conv_stack
-from async_ev_cnn_torch.layers.conv2d import ConvSpec, conv_init, conv_step
+from async_ev_cnn_torch.layers.conv2d import ConvSpec, SiluConvSpec, conv_init, conv_step
 from async_ev_cnn_torch.layers.integration import (
     IntegrationSpec,
     integration_init,
@@ -44,10 +56,11 @@ from async_ev_cnn_torch.layers.types import (
     EventChunk,
     IntegrationState,
     LayerIO,
+    LstmState,
     PoolState,
 )
-from async_ev_cnn_torch.ops import stem
-from async_ev_cnn_torch.ops.conv import conv2d_dense, leaky, matmul_precision
+from async_ev_cnn_torch.ops import rvt, stem
+from async_ev_cnn_torch.ops.conv import conv2d_dense, conv_out_shape, leaky, matmul_precision
 from async_ev_cnn_torch.ops.integrate import integrate_parallel
 from async_ev_cnn_torch.ops.pool import maxpool_dense
 from async_ev_cnn_torch.utils.device import resolve_device
@@ -56,6 +69,7 @@ from async_ev_cnn_torch.utils.profiling import span
 
 class LayerDef(NamedTuple):
     # 'intgr' | 'conv' | 'pool' | 'route' | 'upsample' | 'yolo' | 'fc' | 'flatten'
+    # | RVT's 'embed' | 'attn' | 'lstm' | 'csp' | 'yolox'
     kind: str
     name: str
     spec: Any
@@ -91,8 +105,109 @@ class YoloSpec(NamedTuple):
     mode: str = "full"
 
 
+class EmbedSpec(NamedTuple):
+    """RVT's overlapping patch embedding: a ``ksize`` conv to
+    ``out_channels`` at ``stride``, padded ``k // 2`` a side, without bias,
+    then a LayerNorm over the channels (``ops.rvt.LN_EPS``, affine)."""
+
+    in_shape: tuple[int, int, int]
+    out_channels: int
+    ksize: tuple[int, int]
+    stride: int
+    mode: str = "full"
+
+    @property
+    def out_shape(self) -> tuple[int, int, int]:
+        _, h, w = self.in_shape
+        return (self.out_channels,
+                *conv_out_shape(h, w, *self.ksize, self.stride, "HALF"))
+
+
+class AttnSpec(NamedTuple):
+    """A MaxViT pair (window attention, then grid attention, each with its
+    MLP of ``mlp_ratio``) over ``in_shape``'s channels, ``dim_head`` a head,
+    partitions of ``partition`` (rows, columns) tokens.  The window half
+    skips its pre-norm where the pair follows an embedding, whose output
+    is normed (``skip_first_norm``, RVT's rule)."""
+
+    in_shape: tuple[int, int, int]
+    dim_head: int
+    partition: tuple[int, int]
+    mlp_ratio: int
+    skip_first_norm: bool
+    mode: str = "full"
+
+    @property
+    def heads(self) -> int:
+        return self.in_shape[0] // self.dim_head
+
+    @property
+    def out_shape(self) -> tuple[int, int, int]:
+        return self.in_shape
+
+
+class LstmSpec(NamedTuple):
+    """A ConvLSTM over ``in_shape``'s channels: one step a chunk-boundary
+    surface, its ``(h, c)`` the layer's state (:class:`~async_ev_cnn_torch.
+    layers.types.LstmState`)."""
+
+    in_shape: tuple[int, int, int]
+    mode: str = "full"
+
+    @property
+    def out_shape(self) -> tuple[int, int, int]:
+        return self.in_shape
+
+
+class CspSpec(NamedTuple):
+    """YOLOX's CSP layer: two 1x1 SiLU convs to ``out_channels // 2``,
+    ``depth`` bottlenecks (1x1 then 3x3, no shortcut) on the first, the
+    two concatenated and a 1x1 SiLU conv to ``out_channels``."""
+
+    in_shape: tuple[int, int, int]
+    out_channels: int
+    depth: int
+    mode: str = "full"
+
+    @property
+    def out_shape(self) -> tuple[int, int, int]:
+        return (self.out_channels, *self.in_shape[1:])
+
+    @property
+    def convs(self) -> dict:
+        """Each conv's spec by its parameter suffix (``w_<csp>_<suffix>``):
+        ``c1``, ``c2``, ``m<i>a``, ``m<i>b`` and ``c3``."""
+        _, h, w = self.in_shape
+        hid = self.out_channels // 2
+
+        def conv(cin, cout, k):
+            return SiluConvSpec((cin, h, w), cout, (k, k), 1, 1.0, "SAME", "full")
+
+        out = {"c1": conv(self.in_shape[0], hid, 1), "c2": conv(self.in_shape[0], hid, 1)}
+        for i in range(self.depth):
+            out[f"m{i}a"], out[f"m{i}b"] = conv(hid, hid, 1), conv(hid, hid, 3)
+        out["c3"] = conv(2 * hid, self.out_channels, 1)
+        return out
+
+
+class YoloxSpec(NamedTuple):
+    """A YOLOX level's output: the maps of ``sources`` (box, objectness,
+    classes) concatenated over channels, at ``stride`` input pixels a
+    cell."""
+
+    sources: tuple[str, ...]
+    out_shape: tuple[int, int, int]
+    stride: int
+    mode: str = "full"
+
+
 #: the layer kinds that only the parallel engine's graph walk runs
-GRAPH_KINDS = ("route", "upsample", "yolo")
+GRAPH_KINDS = ("route", "upsample", "yolo", "embed", "attn", "lstm", "csp", "yolox")
+#: RVT's kinds (and its convs' strides and SiLU), which run only in 'full'
+#: mode with float32 activations
+RVT_KINDS = ("embed", "attn", "lstm", "csp", "yolox")
+#: the kinds whose output is a network output
+HEAD_KINDS = ("yolo", "yolox")
 
 
 def build_layer_defs(
@@ -111,7 +226,9 @@ def build_layer_defs(
 
     A ``route``, ``upsample`` or ``yolo`` layer, a pool whose stride is
     below its size or a linear conv (module docstring) needs every layer
-    'full', and a network with ``yolo`` layers no dense tail."""
+    'full', and a network with ``yolo`` layers no dense tail.  RVT's
+    layers, a strided conv and a SiLU conv need ``conv_mode`` 'full' (or
+    'auto') and float32 activations: any other is refused."""
     modes = ("auto", "dense", "sparse", "sparse_pallas", "sparse_rows", "window", "full")
     if conv_mode not in modes:
         raise ValueError(f"conv_mode must be one of {modes}, got {conv_mode!r}")
@@ -123,7 +240,7 @@ def build_layer_defs(
     # surface channel count follows the first conv's input channels:
     # 1 = polarity dropped (reference behavior), 2 = ON/OFF channels.
     first_conv_cin = next(
-        (size[2] for name, size in layer_defs.items() if "conv" in name), 1
+        (size[2] for name, size in layer_defs.items() if "conv" in name or "embed" in name), 1
     )
     if first_conv_cin not in (1, 2):
         raise ValueError(
@@ -139,6 +256,7 @@ def build_layer_defs(
     force_full = False
     layer_modes = getattr(layer_defs, "modes", {})
     linear = getattr(layer_defs, "linear", set())
+    silu = getattr(layer_defs, "silu", set())
     shapes = {}  # each layer's output shape, for the layers that name it
     graph = []  # the layers that need every layer 'full'
 
@@ -148,8 +266,57 @@ def build_layer_defs(
             raise ValueError(f"layer {name}: no earlier layer named {missing or sources}")
         return [shapes[s] for s in sources]
 
+    def full_only(name, what):
+        """Refuse ``what`` outside 'full' mode with float32 activations."""
+        mode = layer_modes.get(name, conv_mode)
+        if mode not in ("full", "auto") or activation_dtype != "float32":
+            raise ValueError(
+                f"layer {name}: {what} runs only in conv_mode 'full' (or 'auto') with "
+                f"float32 activations, got conv_mode {mode!r} and activation_dtype "
+                f"{activation_dtype!r}")
+        graph.append(name)
+
+    def rvt(kind, name, size):
+        """The spec of one of RVT's layers (``utils/config``'s DSL)."""
+        c, h, w = prev_shape
+        if kind == "embed":
+            kh, kw, cin, cout, stride = size
+            if cin != c:
+                raise ValueError(f"layer {name}: in_channels {cin} != previous {c}")
+            return EmbedSpec(prev_shape, cout, (kh, kw), stride)
+        if kind == "attn":
+            dim, dim_head, ph, pw, ratio = size
+            if dim != c or dim % dim_head or h % ph or w % pw:
+                raise ValueError(
+                    f"layer {name}: a pair over {dim} channels in {dim_head}-channel heads "
+                    f"and {ph}x{pw} partitions does not fit the previous {prev_shape}")
+            first = bool(event_layers) and event_layers[-1].kind == "embed"
+            return AttnSpec(prev_shape, dim_head, (ph, pw), ratio, first)
+        if kind == "lstm":
+            if list(size) != [c]:
+                raise ValueError(f"layer {name}: an LSTM over {size} != previous {c} channels")
+            return LstmSpec(prev_shape)
+        if kind == "csp":
+            cin, cout, depth = size
+            if cin != c:
+                raise ValueError(f"layer {name}: in_channels {cin} != previous {c}")
+            return CspSpec(prev_shape, cout, depth)
+        parts = named(name, size)  # yolox
+        if len({p[1:] for p in parts}) > 1:
+            raise ValueError(f"layer {name}: its maps differ in size: {parts}")
+        return YoloxSpec(tuple(size), (sum(p[0] for p in parts), *parts[0][1:]),
+                         frame_h // parts[0][1])
+
     for name, size in layer_defs.items():
-        if "route" in name:
+        kind = next((k for k in RVT_KINDS if k in name), None)
+        if kind is not None:
+            full_only(name, f"the {kind!r} layer")
+            force_full = True
+            spec = rvt(kind, name, size)
+            event_layers.append(LayerDef(kind, name, spec))
+            if kind != "yolox":
+                prev_shape = spec.out_shape
+        elif "route" in name:
             parts = named(name, size)
             if len({p[1:] for p in parts}) > 1:
                 raise ValueError(f"layer {name}: routed maps differ in size: {parts}")
@@ -169,7 +336,12 @@ def build_layer_defs(
             event_layers.append(LayerDef("yolo", name, spec))
             graph.append(name)
         elif "conv" in name:
-            kh, kw, cin, cout = size
+            kh, kw, cin, cout, *strided = size
+            stride = strided[0] if strided else 1
+            if stride != 1:
+                full_only(name, "a strided conv")
+            if name in silu:
+                full_only(name, "a SiLU conv")
             if cin != prev_shape[0]:
                 raise ValueError(
                     f"layer {name}: in_channels {cin} != previous out_channels {prev_shape[0]}"
@@ -197,14 +369,14 @@ def build_layer_defs(
             force_full = force_full or mode == "full"
             if name in linear:
                 graph.append(name)
-            spec = ConvSpec(
+            spec = (SiluConvSpec if name in silu else ConvSpec)(
                 in_shape=prev_shape,
                 out_channels=cout,
                 ksize=(kh, kw),
-                stride=1,
+                stride=stride,
                 # leaky at alpha 1 is the identity, exactly
                 alpha=1.0 if name in linear else alpha,
-                padding=padding,
+                padding="HALF" if stride != 1 else padding,
                 mode=mode,
                 capacity_frac=capacity_frac,
                 window_frac=window_frac,
@@ -239,8 +411,8 @@ def build_layer_defs(
             f"layers {graph} (route, upsample, yolo, an overlapping pool or a "
             "linear conv) need every layer 'full': the incremental modes "
             f"propagate events along a chain, and {incremental} are not 'full'")
-    if tail and any(ld.kind == "yolo" for ld in event_layers):
-        raise ValueError("a network with yolo layers takes no fc/flatten tail")
+    if tail and any(ld.kind in HEAD_KINDS for ld in event_layers):
+        raise ValueError("a network with yolo or yolox layers takes no fc/flatten tail")
     return event_layers, tail
 
 
@@ -304,13 +476,21 @@ class EventNetwork:
         # the outputs that a later route or head reads: the parallel walk
         # keeps them until it returns
         self._keep = frozenset(
-            src for ld in self.event_layers if ld.kind in ("route", "yolo")
-            for src in (ld.spec.sources if ld.kind == "route" else (ld.spec.source,)))
-        #: the yolo layers, whose grids the parallel engine returns in order
-        self.heads = tuple(ld.name for ld in self.event_layers if ld.kind == "yolo")
+            src for ld in self.event_layers if ld.kind in ("route", "yolo", "yolox")
+            for src in ((ld.spec.source,) if ld.kind == "yolo" else ld.spec.sources))
+        #: the yolo and yolox layers, whose grids the parallel engine returns
+        #: in order
+        self.heads = tuple(ld.name for ld in self.event_layers if ld.kind in HEAD_KINDS)
+        #: the yolox layers' strides in input pixels, in order (empty where
+        #: the heads are YOLOv3's)
+        self.head_strides = tuple(ld.spec.stride for ld in self.event_layers
+                                  if ld.kind == "yolox")
+        #: the LSTM layers, whose state the network carries
+        self.recurrent = tuple(ld.name for ld in self.event_layers if ld.kind == "lstm")
         #: whether only the parallel engine's graph walk runs the network
         self.is_graph = bool(getattr(layer_defs, "linear", None)) or any(
             ld.kind in GRAPH_KINDS or ld.kind == "pool" and ld.spec.padding == "SAME"
+            or ld.kind == "conv" and (ld.spec.stride != 1 or ld.spec.act != "leaky")
             for ld in self.event_layers)
         # conv+pool pairs the parallel path MAY run as one space-to-depth
         # conv: indices into event_layers[1:] of the conv whose following
@@ -326,9 +506,10 @@ class EventNetwork:
         self._plans: dict = {}
         #: per conv layer of the sequential engine: host reads of device
         #: flags (``host_syncs``), ``dense_fallbacks`` and
-        #: ``kernel_launches`` since the last :meth:`reset_counts`
+        #: ``kernel_launches`` since the last :meth:`reset_counts`; per LSTM
+        #: layer the ``recurrent_steps`` its scans ran
         self.layer_counts: dict[str, Counter] = {
-            ld.name: Counter() for ld in self.event_layers if ld.kind == "conv"}
+            ld.name: Counter() for ld in self.event_layers if ld.kind in ("conv", "lstm")}
         #: each layer's span name, ``layer.<name>``
         self._spans = {ld.name: f"layer.{ld.name}" for ld in self.event_layers}
         #: chunks through :meth:`step`: the request number of its spans
@@ -371,25 +552,56 @@ class EventNetwork:
         front half (the same model as the JAX package).  In a graph each
         pair also holds the outputs kept for a later route or head, from
         the layer that makes one to the walk's end; a head's grid is its
-        source's kept map."""
+        source's kept map.  Of RVT's layers an embedding also holds its
+        conv's map beside the normed one, and a CSP layer its hidden maps
+        (two of its output's size); a pair works in place on its input and
+        an LSTM writes its hidden maps beside its input.  Their transient
+        maps are blocks of a bounded size (``ops.rvt``), not per chunk:
+        :meth:`parallel_transient_bytes` counts them.  The LSTM's state
+        lies outside the model."""
         ispec = self.event_layers[0].spec
         surface_px = ispec.channels * ispec.h * ispec.w
         prev, prev_kept, kept, peak_pair = surface_px, False, 0, 0
         for ld in self.event_layers[1:]:
-            if ld.kind == "yolo":
+            if ld.kind in HEAD_KINDS:
                 continue
             out = int(prod(ld.spec.out_shape))
+            # a pair adds into its input (into a copy where the input is kept)
+            new = 0 if ld.kind == "attn" and not prev_kept else out
+            extra = {"embed": out, "csp": 2 * out}.get(ld.kind, 0)
             # the input, unless it is kept already, the output and the kept maps
-            peak_pair = max(peak_pair, (0 if prev_kept else prev) + out + kept)
+            peak_pair = max(peak_pair, (0 if prev_kept else prev) + new + extra + kept)
             prev, prev_kept = out, ld.name in self._keep
             kept += out if prev_kept else 0
         return 4 * (2 * surface_px + peak_pair)
 
+    def parallel_transient_bytes(self, frames: int) -> int:
+        """Peak device bytes beside the per-chunk maps of
+        :meth:`parallel_live_bytes_per_chunk` for a window of ``frames``
+        frames: the largest of RVT's blocks (a pair's tokens,
+        ``ops.rvt.pair_block_bytes``; an LSTM's input gates,
+        ``ops.rvt.lstm_block_bytes``), and the workspace of the convs whose
+        algorithm cuDNN times (``conv_stack.TIMED_WORKSPACE_BYTES``).  0 for
+        a network without them."""
+        blocks = [0]
+        for ld in self.event_layers[1:]:
+            if ld.kind in ("attn", "lstm"):
+                size = rvt.pair_block_bytes if ld.kind == "attn" else rvt.lstm_block_bytes
+                blocks.append(size(*ld.spec.in_shape, frames))
+        timed = any(conv_stack.timed(ld) for ld in self.event_layers[1:])
+        return max(blocks) + (conv_stack.TIMED_WORKSPACE_BYTES if timed else 0)
+
     def auto_window(self, t: int, budget_mb: float) -> int | None:
         """Largest time window whose estimated peak activation memory fits
-        ``budget_mb`` (2x safety factor); ``None`` when all ``t`` fit."""
+        ``budget_mb``: the per-chunk maps with a 2x safety factor, and the
+        window's transient blocks (:meth:`parallel_transient_bytes`, none
+        in a chain or YOLOv3-tiny); ``None`` when all ``t`` fit."""
+        budget = budget_mb * 2**20
         per = 2 * self.parallel_live_bytes_per_chunk()
-        w = int(budget_mb * 2**20 // per)
+        # from t + 7 chunks up a window rounds to all t of them
+        w = min(int(budget // per), t + 7)
+        while w > 1 and per * min(w, t) + self.parallel_transient_bytes(min(w, t)) > budget:
+            w -= 1
         w = max(1, w - w % 8 if w >= 8 else w)
         return None if w >= t else w
 
@@ -432,7 +644,9 @@ class EventNetwork:
             st, _ = integration_init(self.event_layers[0].spec, dev)
             return (st,) + tuple(
                 ConvState(zero, zero.clone()) if ld.kind == "conv"
-                else PoolState(index.clone(), flag.clone()) if ld.kind == "pool" else ()
+                else PoolState(index.clone(), flag.clone()) if ld.kind == "pool"
+                else LstmState(*(torch.zeros(ld.spec.in_shape, device=dev) for _ in "hc"))
+                if ld.kind == "lstm" else ()
                 for ld in self.event_layers[1:])
         states = []
         prev_io = None
@@ -536,31 +750,44 @@ class EventNetwork:
         one layer, or a conv and its pool as one op unless ``upto`` cuts
         inside the pair, in the span of its first layer.  A graph's walk
         keeps the outputs that a later route or head reads until it
-        returns."""
+        returns.  A recurrent network (:attr:`recurrent`) runs the frames as
+        one stream's consecutive steps from the LSTM states in ``state``
+        (:meth:`walk` takes several streams' and returns the states it
+        leaves)."""
+        return self.walk(params, state, frame, upto)[0]
+
+    def walk(self, params, state: tuple, frame: torch.Tensor, upto: int | None = None,
+             lead: tuple[int, int] | None = None):
+        """:meth:`full_frame_forward`'s outputs and the network's state
+        after them: ``state`` with each LSTM's entry replaced by the state
+        its scan left (the others as given).  ``lead`` is the frames'
+        (streams, time steps), time-major (frame ``t * S + s``); by default
+        one stream's."""
         with span("scan.conv_stack"):
             steps = conv_stack.plan(self, frame.device, needs_grad(frame, params),
                                     frames=prod(frame.shape[:-3]))
             # surface >= 0, so featuremap == surface: no activation mask
-            x, kept, grids = frame, {}, []
+            x, grids = frame, []
+            kept = conv_stack.Maps(lead or (1, prod(frame.shape[:-3])), state)
             for step in steps:
                 if upto is not None and step.start >= upto:
-                    return x
+                    return x, kept.state
                 if upto is not None and step.start + len(step.layers) > upto:
                     step = conv_stack.Step("conv", step.start, step.layers[:1])  # cut: unfused
                 with span(self._spans[step.layers[0].name]):
                     out = conv_stack.RUNS[step.route](self, params, step, x, kept)
-                if step.route == "yolo":
+                if step.route in HEAD_KINDS:
                     grids.append(out)
                 else:
                     x = out
                 if step.layers[-1].name in self._keep:
                     kept[step.layers[-1].name] = x
             if upto is not None:
-                return x
+                return x, kept.state
             if self.heads:
-                return tuple(grids)
+                return tuple(grids), kept.state
             with span("layer.tail"):
-                return self.apply_tail(params, x.movedim(-3, -1))
+                return self.apply_tail(params, x.movedim(-3, -1)), kept.state
 
     def scan_parallel(
         self,
@@ -600,7 +827,10 @@ class EventNetwork:
 
         Returns ``(new_state, outputs [T, ...])`` (``[S, T, ...]`` with a
         stream axis, each stream equal to a call of its own); a network with
-        ``yolo`` layers gives a tuple of such grids, one a head.
+        ``yolo`` or ``yolox`` layers gives a tuple of such grids, one a head.
+        A recurrent network's LSTM states are the new state's too: the
+        scans carry them across windows, and the next call goes on from
+        them.
         """
         if not self.is_all_full:
             bad = [
@@ -627,13 +857,23 @@ class EventNetwork:
             with span("scan.integrate"):
                 surfaces, last_ts = integrate_parallel(
                     surf, pts, cs, leak, ts_window=ts_window, engine=integrate_engine)
-            # the conv stack runs once over every frame of the window
-            frames = surfaces.flatten(0, 1) if streams else surfaces
-            out = self.full_frame_forward(params, state, frames)
+            # the conv stack runs once over every frame of the window; the
+            # LSTMs' states carry from window to window, and a recurrent
+            # network's frames go time-major (each step's frames adjacent)
+            lead = tuple(surfaces.shape[:2]) if streams else (1, surfaces.shape[0])
+            time_major = streams and bool(self.recurrent)
+            frames = (surfaces.transpose(0, 1).flatten(0, 1) if time_major
+                      else surfaces.flatten(0, 1) if streams else surfaces)
+            if self.recurrent:
+                out, state = self.walk(params, state, frames, lead=lead)
+            else:  # no state to carry: the entry of a plain forward
+                out = self.full_frame_forward(params, state, frames)
             if streams:
-                lead = surfaces.shape[:2]
-                out = (tuple(o.unflatten(0, lead) for o in out) if isinstance(out, tuple)
-                       else out.unflatten(0, lead))
+                def unflat(o):
+                    return (o.unflatten(0, lead[::-1]).transpose(0, 1) if time_major
+                            else o.unflatten(0, lead))
+
+                out = tuple(map(unflat, out)) if isinstance(out, tuple) else unflat(out)
             outs.append(out)
             # clone: a view would keep the window's whole surface stack alive
             surf, pts = surfaces.select(tax, -1).clone(), last_ts.select(tax, -1).clone()

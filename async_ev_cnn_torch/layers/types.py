@@ -145,3 +145,12 @@ class PoolState(NamedTuple):
 
     idx_max: torch.Tensor
     recompute: torch.Tensor
+
+
+class LstmState(NamedTuple):
+    """State of a recurrent layer (RVT's ConvLSTM): the hidden and cell
+    maps ``[C, H, W]`` carried from one chunk-boundary surface to the
+    next."""
+
+    h: torch.Tensor
+    c: torch.Tensor

@@ -7,6 +7,8 @@ one call decodes every frame of a dispatch.
 
 :func:`decode_yolov3` is the port's own: YOLOv3's anchor decode (Redmon &
 Farhadi 2018, darknet's ``yolo`` layer) over the grids of several heads.
+:func:`decode_yolox` is YOLOX's anchor-free decode (Ge et al. 2021), RVT's
+head.
 """
 
 from __future__ import annotations
@@ -91,5 +93,38 @@ def decode_yolov3(grids, anchors, masks, h_image: int, w_image: int):
                                       wh[..., 0], wh[..., 1]], dim=-1).reshape(*lead, -1, 4))
             scores.append(obj.reshape(*lead, -1))
             cls = torch.sigmoid(p[..., 5:]) * obj[..., None]
+            probs.append(cls.reshape(*lead, -1, cls.shape[-1]))
+        return torch.cat(boxes, dim=-2), torch.cat(scores, dim=-1), torch.cat(probs, dim=-2)
+
+
+def decode_yolox(grids, strides):
+    """Decode YOLOX levels into detections, on the grids' device.
+
+    ``grids`` are the levels' raw ``[..., gh, gw, 4 + 1 + C]`` outputs (box
+    ``(x, y, w, h)`` regressions, objectness and class logits, the
+    network's ``yolox`` layers), ``strides`` their input pixels a cell.  A
+    cell's box is centred at ``((tx + col) * stride, (ty + row) * stride)``
+    with size ``(exp(tw) * stride, exp(th) * stride)``; its score is
+    ``sigmoid(obj)`` and each class score ``sigmoid(cls) * sigmoid(obj)``.
+
+    Returns ``(boxes [..., N, 4]`` centre x, centre y, width, height in
+    pixels, ``scores [..., N]``, ``class_probs [..., N, C])`` with the
+    levels in order and each level's cells by row and column: ``N =
+    sum(gh * gw)``.
+    """
+    boxes, scores, probs = [], [], []
+    with span("head.yolox"):
+        for grid, stride in zip(grids, strides):
+            g = torch.as_tensor(grid, dtype=torch.float32)
+            lead, (gh, gw) = g.shape[:-3], g.shape[-3:-1]
+            col = torch.arange(gw, dtype=torch.float32, device=g.device).reshape(gw)
+            row = torch.arange(gh, dtype=torch.float32, device=g.device).reshape(gh, 1)
+            # the stride is a Python scalar: no tensor crosses to the card
+            wh = g[..., 2:4].exp() * stride
+            obj = torch.sigmoid(g[..., 4])
+            boxes.append(torch.stack([(g[..., 0] + col) * stride, (g[..., 1] + row) * stride,
+                                      wh[..., 0], wh[..., 1]], dim=-1).reshape(*lead, -1, 4))
+            scores.append(obj.reshape(*lead, -1))
+            cls = torch.sigmoid(g[..., 5:]) * obj[..., None]
             probs.append(cls.reshape(*lead, -1, cls.shape[-1]))
         return torch.cat(boxes, dim=-2), torch.cat(scores, dim=-1), torch.cat(probs, dim=-2)

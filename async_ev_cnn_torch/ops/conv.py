@@ -96,12 +96,17 @@ def tf_same_pads(in_h: int, in_w: int, k_h: int, k_w: int, stride: int):
 
 
 def conv_pads(in_h: int, in_w: int, k_h: int, k_w: int, stride: int, padding: str):
-    """Explicit pads for 'SAME' or 'VALID' padding."""
+    """Explicit pads for 'SAME', 'VALID' or 'HALF' padding.  'HALF' pads
+    ``k // 2`` on each side whatever the stride (PyTorch's ``padding=k //
+    2``, which RVT's and YOLOX's strided convs use); at stride 1 with an odd
+    kernel it is 'SAME'."""
     if padding == "VALID":
         return (0, 0), (0, 0)
     if padding == "SAME":
         return tf_same_pads(in_h, in_w, k_h, k_w, stride)
-    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    if padding == "HALF":
+        return (k_h // 2, k_h // 2), (k_w // 2, k_w // 2)
+    raise ValueError(f"padding must be 'SAME', 'VALID' or 'HALF', got {padding!r}")
 
 
 def conv_out_shape(in_h: int, in_w: int, k_h: int, k_w: int, stride: int, padding: str):
@@ -110,7 +115,10 @@ def conv_out_shape(in_h: int, in_w: int, k_h: int, k_w: int, stride: int, paddin
         return (in_h - k_h) // stride + 1, (in_w - k_w) // stride + 1
     if padding == "SAME":
         return -(-in_h // stride), -(-in_w // stride)
-    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    if padding == "HALF":
+        return ((in_h + 2 * (k_h // 2) - k_h) // stride + 1,
+                (in_w + 2 * (k_w // 2) - k_w) // stride + 1)
+    raise ValueError(f"padding must be 'SAME', 'VALID' or 'HALF', got {padding!r}")
 
 
 def conv2d_dense(

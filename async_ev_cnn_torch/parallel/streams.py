@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from async_ev_cnn_torch.layers.network import EventNetwork, LayerDef
+from async_ev_cnn_torch.layers.network import RVT_KINDS, EventNetwork, LayerDef
 from async_ev_cnn_torch.layers.types import EventChunk, LayerIO
 from async_ev_cnn_torch.parallel.mesh import Comm, axis_size, mesh_device
 
@@ -125,6 +125,10 @@ class MultiStreamEngine:
         #: the collectives over ``data`` (outputs) and ``model`` (layers)
         self.data = Comm(mesh.get_group("data"), self.device)
         self.model = Comm(mesh.get_group("model"), self.device)
+        rvt = [ld.name for ld in net.event_layers if ld.kind in RVT_KINDS]
+        if rvt and self.n_model > 1:
+            raise ValueError(f"the model axis shards conv channels; layers {rvt} are not "
+                             "sharded: serve such a network on a mesh of 'data' alone")
         #: the network this rank runs (``net`` itself when ``n_model == 1``)
         self.net = net if self.n_model == 1 else ChannelShardedNetwork(net, self.model)
         self._full_net = net

@@ -52,6 +52,10 @@ class TimeShardEngine:
             raise ValueError(
                 "time sharding requires conv_mode='full' for every layer "
                 "(same precondition as scan_parallel)")
+        if net.recurrent:
+            raise ValueError(
+                f"time sharding splits a stream's chunks over devices; the LSTMs "
+                f"{list(net.recurrent)} step through them in order")
         names = mesh.mesh_dim_names or ()
         for name in (axis, stream_axis):
             if name is not None and name not in names:

@@ -15,7 +15,9 @@ no-op chunks).  Events cross to the card in the smallest wire tier they
 fit (``--serve_wire``, 'auto' by default).  ``--out`` decodes the YOLO head
 on the card and writes host-NMS'd detections as JSON lines (a DSL with
 ``yolo`` layers, such as ``configs/yolov3_tiny_event.yml``, decodes its heads
-with ``--yolo_anchors`` and ``--yolo_masks``); ``--serve_state
+with ``--yolo_anchors`` and ``--yolo_masks``; one with ``yolox`` layers,
+such as RVT's ``configs/rvt_base_event.yml``, with YOLOX's decode at their
+strides); ``--serve_state
 path.npz`` writes the mid-stream network state at exit and restores it at
 start, so a restarted deployment continues its streams' surfaces bit for
 bit.  Prints one JSON stats line.
@@ -188,7 +190,13 @@ def main(argv=None):
     num_classes = reader.num_classes()
 
     post = None
-    if args.out and model.net.heads:
+    if args.out and model.net.head_strides:
+        strides = model.net.head_strides
+
+        def post(outs):  # the YOLOX levels, decoded together
+            boxes, _, probs = head.decode_yolox(outs, strides)
+            return boxes, probs
+    elif args.out and model.net.heads:
         if not (args.yolo_anchors and args.yolo_masks):
             raise SystemExit("--out with yolo layers decodes with --yolo_anchors "
                              "and --yolo_masks")

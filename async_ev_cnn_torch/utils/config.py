@@ -22,8 +22,28 @@ small graph (:mod:`async_ev_cnn_torch.layers.network`):
 * ``yolo16=conv15``: a detection head's grid, one network output per
   ``yolo`` layer.
 
-``route`` and ``yolo`` items name layers; every other item's dims are
-integers.
+And the tokens of RVT (Gehrig & Scaramuzza 2023, arXiv:2212.05598), the
+recurrent vision transformer for event cameras, with its YOLOX neck and
+head, which the 'full' engine runs too (``configs/rvt_base_event.yml``):
+
+* ``embed1=7,7,1,64,4``: a ``kh x kw`` conv of ``cin -> cout`` channels at
+  stride 4, padded ``k // 2`` a side, without bias, then a LayerNorm over
+  the channels (RVT's overlapping patch embedding);
+* ``attn1=64,32,6,10,4``: a MaxViT block pair over ``dim`` channels, with
+  ``dim_head`` channels a head, window and grid attention over 6 x 10
+  partitions, each half followed by an MLP of ratio 4;
+* ``lstm1=64``: a ConvLSTM over ``dim`` channels, one time step a
+  chunk-boundary surface, its state carried from dispatch to dispatch;
+* ``csp_p4=512,256,2``: YOLOX's CSP layer, ``cin -> cout`` channels with
+  2 bottlenecks (no shortcut);
+* ``conv_bu2=3,3,128,128,2@silu``: a conv at stride 2 (padded ``k // 2``
+  a side) and the SiLU activation (``@silu``: conv + folded batch norm +
+  SiLU, YOLOX's ``BaseConv``);
+* ``yolox_h3=conv_h3_reg,conv_h3_obj,conv_h3_cls``: one YOLOX level's raw
+  output, the box, objectness and class maps concatenated over channels.
+
+``route``, ``yolo`` and ``yolox`` items name layers; every other item's
+dims are integers.
 """
 
 from __future__ import annotations
@@ -37,7 +57,9 @@ import yaml
 
 #: the activation suffix of a conv without the leaky activation
 LINEAR = "linear"
-#: layer kinds whose dims name earlier layers
+#: the activation suffix of a conv with the SiLU activation (YOLOX's)
+SILU = "silu"
+#: layer kinds whose dims name earlier layers (``yolox`` holds ``yolo``)
 _NAMED_DIMS = ("route", "yolo")
 
 
@@ -46,13 +68,15 @@ class LayerDSL(OrderedDict):
 
     ``modes`` maps layer name -> conv execution mode for layers annotated
     with ``@mode`` in the DSL (e.g. ``conv1=3,3,1,16@window``);
-    ``linear`` holds the convs annotated ``@linear``.
+    ``linear`` holds the convs annotated ``@linear``, ``silu`` those
+    annotated ``@silu``.
     """
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.modes: dict = {}
         self.linear: set = set()
+        self.silu: set = set()
 
 
 def layers_dict(text: str) -> "LayerDSL":
@@ -60,8 +84,9 @@ def layers_dict(text: str) -> "LayerDSL":
 
     Matches config.py:6-12 (space-separated ``name=dims`` items, dims
     comma-separated ints) plus an optional per-layer conv execution mode
-    suffix: ``conv1=3,3,1,16@window``, an ``@linear`` suffix, and the
-    ``route``/``yolo`` items whose dims are layer names (module docstring).
+    suffix: ``conv1=3,3,1,16@window``, an ``@linear`` or ``@silu`` suffix,
+    and the ``route``/``yolo``/``yolox`` items whose dims are layer names
+    (module docstring).
     """
     try:
         out = LayerDSL()
@@ -83,6 +108,8 @@ def layers_dict(text: str) -> "LayerDSL":
             for suffix in suffixes:
                 if suffix == LINEAR:
                     out.linear.add(name)
+                elif suffix == SILU:
+                    out.silu.add(name)
                 elif suffix:
                     out.modes[name] = suffix
         return out
@@ -97,9 +124,10 @@ def layers_dsl(layer_defs: "OrderedDict[str, list[int]]") -> str:
     """Inverse of :func:`layers_dict`."""
     modes = getattr(layer_defs, "modes", {})
     linear = getattr(layer_defs, "linear", set())
+    silu = getattr(layer_defs, "silu", set())
     return " ".join(
         f"{k}={','.join(map(str, v))}" + (f"@{modes[k]}" if k in modes else "")
-        + (f"@{LINEAR}" if k in linear else "")
+        + (f"@{LINEAR}" if k in linear else "") + (f"@{SILU}" if k in silu else "")
         for k, v in layer_defs.items()
     )
 

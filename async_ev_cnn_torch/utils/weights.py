@@ -44,22 +44,26 @@ DARKNET_BN_EPS = 1e-6
 _BN = ("gamma_", "beta_", "mean_", "var_")
 
 
-def fold_batchnorm(params: dict, eps: float = DARKNET_BN_EPS) -> dict:
+def fold_batchnorm(params: dict, eps: float = DARKNET_BN_EPS, form: str = "darknet") -> dict:
     """Darknet's batch norm, ``(x - mean) / (sqrt(var) + eps) * gamma +
     beta`` after a conv without bias, folded into the conv: for each conv
     ``<name>`` with ``gamma_<name>``, ``beta_<name>``, ``mean_<name>`` and
     ``var_<name>`` (``[O]`` each), ``w_<name>`` (OIHW, the port's layout)
     is scaled over its output channels by ``s = gamma / (sqrt(var) + eps)``
-    and ``b_<name>`` becomes ``beta - mean * s``.  The statistics leave the
-    dict; every other entry passes unchanged, so a dict without them comes
-    back as it is.  Folding rounds differently from the unfolded form, by a
-    few float32 ulps."""
+    and ``b_<name>`` becomes ``beta - mean * s``.  ``form='torch'`` folds
+    PyTorch's ``BatchNorm2d`` (YOLOX's) instead, ``s = gamma / sqrt(var +
+    eps)``.  The statistics leave the dict; every other entry passes
+    unchanged, so a dict without them comes back as it is.  Folding rounds
+    differently from the unfolded form, by a few float32 ulps."""
+    if form not in ("darknet", "torch"):
+        raise ValueError(f"form must be 'darknet' or 'torch', got {form!r}")
     out = {k: v for k, v in params.items() if not k.startswith(_BN)}
     for key in params:
         if not key.startswith("gamma_"):
             continue
         name = key[len("gamma_"):]
-        scale = params[key] / (params[f"var_{name}"].sqrt() + eps)
+        var = params[f"var_{name}"]
+        scale = params[key] / (var.sqrt() + eps if form == "darknet" else (var + eps).sqrt())
         w = params[f"w_{name}"]
         out[f"w_{name}"] = w * scale.reshape(-1, *([1] * (w.dim() - 1)))
         out[f"b_{name}"] = params[f"beta_{name}"] - params[f"mean_{name}"] * scale

@@ -283,7 +283,22 @@ Then Orbax checkpoints, the ranks CLI and the window memory model:
     and cuDNN's conv and the pooled epilogue's device time; then the time
     and peak memory of the card plans' probes of both networks at N =
     1,024 (each pair's C1 against cuDNN's conv and the pooled epilogue,
-    layers/conv_stack.c1_gives_the_library).
+    layers/conv_stack.c1_gives_the_library);
+37. RVT-B (run after phase 36): async_ev_cnn_torch/configs/rvt_base_event.yml
+    at 384x640 and its published widths, with reference/rvt.py's seeded
+    weights.  L1 (csrc/layer_norm.cu), G1 (csrc/lstm_gates.cu) and E1's
+    SiLU form within 1e-6 of their plain versions' largest values at
+    every shape of a dispatch's walk (the four embeddings' channels-first
+    maps over 1,024 frames; each pair's window partition, grid pre-norm and
+    MLP norm at its block of frames; a step of each LSTM over 16 streams;
+    each shape of the SiLU convs), each with its device time and bound
+    (bytes) and the sum over a dispatch; then the rvt_base_full.replay_s16
+    cell's dispatch (16 streams x 64 chunks of 200 clustered events)
+    through StreamingPipeline with the counts set to 0 just before it:
+    exact L1 (4 + 4 a pair a block of frames: 52), G1 (256), E1 (47 SiLU,
+    9 linear), K1 (1) and recurrent-step (256) counts, its peak inside the
+    memory model, and a profiled dispatch's device time by kernel; one
+    stream's 64 chunks under a 2,000 MB window budget peak inside it.
 
 It then prints the kernels' JSON line, the nvidia-smi line, and last the
 result line.  K1's to K6's ``ms`` are their device time per call from
@@ -3558,6 +3573,298 @@ def memory_model_phase(dev, smi):
     return rows
 
 
+# ---- phase 37: RVT-B's kernels and its served path ----------------------------
+
+RVT_H, RVT_W = 384, 640
+RVT_YAML = "async_ev_cnn_torch/configs/rvt_base_event.yml"
+# the rvt_base_full.replay_s16 cell's dispatch: 16 streams x 64 chunks of 200
+# clustered events, 1,024 frames
+RVT_STREAMS, RVT_CHUNKS, RVT_EVENTS = 16, 64, 200
+RVT_FRAMES = RVT_STREAMS * RVT_CHUNKS
+# a dispatch's E1 launches: SiLU in the four CSP layers (7 convs each), the
+# PAFPN's two lateral and two bottom-up convs and 5 a head level; the linear
+# box, objectness and class convs of the three levels
+RVT_SILUS, RVT_LINEARS = 4 * 7 + 4 + 3 * 5, 3 * 3
+# L1, G1 and E1's SiLU form against their plain versions: within this share
+# of the plain version's largest value (tests/test_torch_rvt_chip.py's)
+RVT_KERNEL_REL = 1e-6
+# one stream's 64 chunks under this window budget: auto_window's window
+# must keep the call's peak inside it
+RVT_BUDGET_MB = 2000
+
+
+def rvt_stages(net):
+    """(C, H, W) of each attention pair's and LSTM's maps, in order."""
+    return [ld.spec.in_shape for ld in net.event_layers[1:] if ld.kind == "attn"]
+
+
+def rvt_kernel_row(what, calls, got, want, ms, n_bytes, exact=False):
+    """One case of phase 37: ``got`` within RVT_KERNEL_REL of ``want``'s
+    largest value (equal where ``exact``), its device ms a call and its
+    bound (bytes at PEAK_BYTES_S), and ``calls`` a dispatch."""
+    torch.cuda.synchronize()
+    gap = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    require(got.shape == want.shape and (torch.equal(got, want) if exact
+                                         else gap <= RVT_KERNEL_REL * top),
+            f"{what}: {gap:.3g} from its plain version, whose largest value is {top:.3g}")
+    return {"case": what, "calls": calls, "max_abs_err": gap, "ms": ms,
+            "bound_ms": bound_ms(n_bytes, 0)[0]}
+
+
+def rvt_kernel_cases(dev, net):
+    """L1 (every call of a dispatch's walk: the four embeddings' channels-
+    first maps over all RVT_FRAMES frames, and each pair's three kinds of
+    call at its block of frames), G1 (a step of each LSTM: the 16 streams'
+    pixels) and E1's SiLU form (each shape of the dispatch's SiLU convs)
+    at the path's shapes against their plain versions, with device ms a
+    call and bound.  Returns each kernel's rows."""
+    from async_ev_cnn_torch.ops import epilogue as ep
+    from async_ev_cnn_torch.ops import layer_norm as l1
+    from async_ev_cnn_torch.ops import lstm_gates as g1
+    from async_ev_cnn_torch.ops import rvt
+
+    g = torch.Generator(device=dev).manual_seed(37)
+    rows = {"layer_norm": [], "lstm_gates": [], "conv_epilogue_silu": []}
+    ph, pw = next(ld.spec.partition for ld in net.event_layers if ld.kind == "attn")
+    for c, h, w in rvt_stages(net):
+        gamma = torch.rand(c, generator=g, device=dev) + 0.5
+        beta = torch.randn(c, generator=g, device=dev) * 0.1
+        # the embedding: the strided conv's NCHW map, read through its view
+        x = torch.randn(RVT_FRAMES, c, h, w, generator=g, device=dev).permute(0, 2, 3, 1)
+        n_bytes = 8 * x.numel()
+        rows["layer_norm"].append(rvt_kernel_row(
+            f"embedding C={c} {h}x{w} channels-first N={RVT_FRAMES}", 1,
+            l1.layer_norm(x, gamma, beta, rvt.LN_EPS),
+            l1.layer_norm_plain(x, gamma, beta, rvt.LN_EPS),
+            device_ms(lambda: l1.layer_norm(x, gamma, beta, rvt.LN_EPS), "layer_norm_kernel"),
+            n_bytes))
+        del x
+        # a pair's block: the window half's partition alone (after an
+        # embedding), the grid half's pre-norm, the two MLPs' norms
+        step = max(1, rvt.ATTN_BLOCK_TOKENS // (h * w))
+        n = min(step, RVT_FRAMES)
+        blocks = -(-RVT_FRAMES // step)
+        x = torch.randn(n, h, w, c, generator=g, device=dev)
+        for kind, norm, calls in (("win", False, 1), ("grid", True, 1), (None, True, 2)):
+            args = (x, gamma if norm else None, beta if norm else None, rvt.LN_EPS, kind, ph, pw)
+            rows["layer_norm"].append(rvt_kernel_row(
+                f"pair C={c} {h}x{w} {kind or 'tokens'}{'' if norm else ' (copy)'} N={n}",
+                calls * blocks, l1.layer_norm(*args), l1.layer_norm_plain(*args),
+                device_ms(lambda: l1.layer_norm(*args), "layer_norm_kernel"),
+                8 * x.numel(), exact=not norm))
+        del x
+        # a step of the LSTM: the streams' pixels, 4C gates a pixel
+        r = RVT_STREAMS * h * w
+        gates = torch.randn(r, 4 * c, generator=g, device=dev) * 3
+        cell = torch.randn(r, c, generator=g, device=dev) * 2
+        want_c, want_h = cell.clone(), torch.empty_like(cell)
+        g1.lstm_gates_plain(gates.clone(), want_c, want_h)
+        got_c, got_h = cell.clone(), torch.empty_like(cell)
+        g1.lstm_gates(gates.clone(), got_c, got_h)
+        row = rvt_kernel_row(f"step C={c} R={r}", RVT_CHUNKS, torch.cat([got_c, got_h]),
+                             torch.cat([want_c, want_h]),
+                             device_ms(lambda: g1.lstm_gates(gates, cell, got_h),
+                                       "lstm_gates_kernel"), 4 * 7 * r * c)
+        rows["lstm_gates"].append(row)
+        del gates, cell, want_c, want_h, got_c, got_h
+        torch.cuda.empty_cache()
+    # E1's SiLU form at each shape of the dispatch's SiLU convs
+    shapes = {}
+    for ld in net.event_layers[1:]:
+        convs = ld.spec.convs.values() if ld.kind == "csp" else (
+            (ld.spec,) if getattr(ld.spec, "act", None) == "silu" else ())
+        for spec in convs:
+            key = tuple(spec.out_shape)
+            shapes[key] = shapes.get(key, 0) + 1
+    require(sum(shapes.values()) == RVT_SILUS,
+            f"RVT-B's walk has {sum(shapes.values())} SiLU convs, not {RVT_SILUS}")
+    for (c, h, w), calls in sorted(shapes.items()):
+        raw = torch.randn(RVT_FRAMES, c, h, w, generator=g, device=dev) * 2
+        bias = torch.randn(c, generator=g, device=dev) * 0.3
+        rows["conv_epilogue_silu"].append(rvt_kernel_row(
+            f"C={c} {h}x{w} N={RVT_FRAMES}", calls,
+            ep.conv_epilogue(raw, bias, 0.1, act="silu"),
+            ep.conv_epilogue_plain(raw.clone(), bias, 0.1, act="silu"),
+            device_ms(lambda: ep.conv_epilogue(raw, bias, 0.1, act="silu"),
+                      "act_epilogue_kernel"), 8 * raw.numel()))
+        del raw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rvt_net(dev):
+    """RVT-B from its configuration at 384x640, with the reference's seeded
+    weights (reference/rvt.make_weights), batch norm folded."""
+    from async_ev_cnn_torch.layers.network import EventNetwork
+    from async_ev_cnn_torch.utils.config import layers_dict
+    from async_ev_cnn_torch.utils.weights import fold_batchnorm
+    from reference import rvt as ref
+
+    text = (HERE / RVT_YAML).read_text().split("yolo_cnn_layers: ")[1].split("\n")[0]
+    net = EventNetwork(layers_dict(text), RVT_H, RVT_W, LEAK, 0.1, "SAME", conv_mode="full",
+                       stem_fusion=False)
+    wt = ref.make_weights(ref.architecture(), 2024, dev)
+    return net, fold_batchnorm(wt, eps=ref.BN_EPS, form="torch")
+
+
+def rvt_path(dev, net, params):
+    """RVT-B served by StreamingPipeline as the cell serves it (16 streams
+    x 64 chunks of 200 clustered events a dispatch, YOLOX's decode on the
+    card): a first dispatch (cuDNN times its convs' algorithms), then one
+    with the counts set to 0 just before it and read just after, then one
+    under torch.profiler.  Returns the counted dispatch's launches, its
+    peak bytes and the profiled dispatch's device ms by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from async_ev_cnn_torch.layers.types import LstmState
+    from async_ev_cnn_torch.models.head import decode_yolox
+    from async_ev_cnn_torch.ops import epilogue as ep
+    from async_ev_cnn_torch.ops import layer_norm as l1
+    from async_ev_cnn_torch.ops import lstm_gates as g1
+    from async_ev_cnn_torch.ops import surface_scan as sc
+    from async_ev_cnn_torch.utils.serving import StreamingPipeline
+
+    def post(outs):
+        boxes, _, probs = decode_yolox(outs, net.head_strides)
+        return boxes, probs
+
+    pipe = StreamingPipeline(net, params, capacity=RVT_EVENTS, streams=RVT_STREAMS,
+                             t_chunks=RVT_CHUNKS, max_in_flight=2, postprocess=post,
+                             device=dev)
+    rng = np.random.RandomState(37)
+    streams = [clustered_stream(rng, 3 * RVT_CHUNKS, RVT_EVENTS, h=RVT_H, w=RVT_W)
+               for _ in range(RVT_STREAMS)]
+    items = [[s[k * RVT_CHUNKS * RVT_EVENTS:(k + 1) * RVT_CHUNKS * RVT_EVENTS] for s in streams]
+             for k in range(3)]
+    list(pipe.serve(items[0]))
+    torch.cuda.synchronize()
+    for mod in (l1, g1, ep, sc):
+        mod.LAUNCHES.update(dict.fromkeys(mod.LAUNCHES, 0))
+    net.reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    (r,) = pipe.serve(items[1])
+    torch.cuda.synchronize()
+    launches = {"layer_norm": l1.LAUNCHES["layer_norm"], "lstm_gates": g1.LAUNCHES["lstm_gates"],
+                "conv_epilogue": ep.LAUNCHES["conv_epilogue"],
+                "conv_epilogue_silu": ep.LAUNCHES["conv_epilogue_silu"],
+                "surface_scan_events_streams": sc.LAUNCHES["surface_scan_events_streams"],
+                "recurrent_steps": sum(c["recurrent_steps"] for c in net.layer_counts.values())}
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    boxes, probs = r.outputs
+    require(r.n_events == RVT_FRAMES * RVT_EVENTS, f"the dispatch consumed {r.n_events} events")
+    require(boxes.shape[:2] == probs.shape[:2] == (RVT_STREAMS, RVT_CHUNKS)
+            and bool(torch.isfinite(boxes).all() and torch.isfinite(probs).all()),
+            f"RVT-B's decoded outputs {tuple(boxes.shape)}, {tuple(probs.shape)}")
+    lstm = [s for s in pipe.state if isinstance(s, LstmState)]
+    require(len(lstm) == 4 and all(bool(s.c.abs().max() > 0) for s in lstm),
+            "the pipeline carries no LSTM state")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        list(pipe.serve(items[2]))
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = ("layer_norm" if "layer_norm_kernel" in e.name else
+                "lstm_gates" if "lstm_gates_kernel" in e.name else
+                "conv_epilogue_silu" if "act_epilogue_kernel<" in e.name
+                and e.name.split("<")[1].split(",")[1].strip() == "true" else "other")
+        ms, n = by.get(name, (0.0, 0))
+        by[name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return launches, peak, by
+
+
+def rvt_memory(dev, net, params):
+    """One stream's RVT_CHUNKS chunks through scan_parallel, whole and with
+    window_budget_mb=RVT_BUDGET_MB: the windowed call's peak above the
+    bytes before it must lie inside the budget, the whole call's inside the
+    model (2x the per-chunk maps and the transient blocks)."""
+    from async_ev_cnn_torch.utils.runner import pack_chunks
+
+    stream = clustered_stream(np.random.RandomState(38), RVT_CHUNKS, RVT_EVENTS, h=RVT_H,
+                              w=RVT_W)
+    chunks = pack_chunks(stream, RVT_EVENTS, device=dev)
+    state = net.init_state(params, dev)
+    out = {}
+    for budget in (None, RVT_BUDGET_MB):
+        def call(budget=budget):
+            return net.scan_parallel(params, state, chunks, window_budget_mb=budget)
+        call()
+        torch.cuda.synchronize()
+        out[budget] = peak_bytes(call)[1]
+    model = (2 * net.parallel_live_bytes_per_chunk() * RVT_CHUNKS
+             + net.parallel_transient_bytes(RVT_CHUNKS))
+    window = net.auto_window(RVT_CHUNKS, RVT_BUDGET_MB)
+    require(out[RVT_BUDGET_MB] <= RVT_BUDGET_MB * 2**20,
+            f"window {window} under a {RVT_BUDGET_MB} MB budget peaked at "
+            f"{out[RVT_BUDGET_MB] / 2**20:.1f} MB")
+    require(out[None] <= model, f"one stream's {RVT_CHUNKS} chunks peaked at {out[None]} "
+            f"bytes, above the model's {model}")
+    return {"window": window, "peak_mb": out[RVT_BUDGET_MB] / 2**20,
+            "whole_peak_mb": out[None] / 2**20, "model_mb": model / 2**20}
+
+
+def rvt_phase(dev, smi):
+    """Phase 37: RVT-B (configs/rvt_base_event.yml) at 384x640.  L1, G1 and
+    E1's SiLU form against their plain versions at every shape of a
+    dispatch's walk (:func:`rvt_kernel_cases`); the served path
+    (:func:`rvt_path`) with exact launch counts: L1 4 + 4 a pair a block of
+    frames, G1 4 LSTMs x 64 steps, E1 RVT_SILUS SiLU and RVT_LINEARS
+    linear, one K1, 256 recurrent steps, its peak inside the memory model
+    at 1,024 frames; the window budget on the card (:func:`rvt_memory`).
+    Returns L1's, G1's and the SiLU form's entries of the kernels' line."""
+    from async_ev_cnn_torch.ops import rvt
+
+    net, params = rvt_net(dev)
+    cases = rvt_kernel_cases(dev, net)
+    blocks = sum(-(-RVT_FRAMES // max(1, rvt.ATTN_BLOCK_TOKENS // (h * w)))
+                 for _, h, w in rvt_stages(net))
+    want = {"layer_norm": 4 + 4 * blocks, "lstm_gates": 4 * RVT_CHUNKS,
+            "conv_epilogue": RVT_SILUS + RVT_LINEARS, "conv_epilogue_silu": RVT_SILUS,
+            "surface_scan_events_streams": 1, "recurrent_steps": 4 * RVT_CHUNKS}
+    launches, peak, by = rvt_path(dev, net, params)
+    require(launches == want, f"RVT-B's dispatch launched {launches}, not {want}")
+    model = (2 * net.parallel_live_bytes_per_chunk() * RVT_FRAMES
+             + net.parallel_transient_bytes(RVT_FRAMES))
+    require(peak <= model, f"RVT-B's dispatch peaked at {peak} bytes, above the model's {model}")
+    mem = rvt_memory(dev, net, params)
+    entries = []
+    sources = {"layer_norm": "layer_norm.cu", "lstm_gates": "lstm_gates.cu",
+               "conv_epilogue_silu": "conv_epilogue.cu"}
+    for name, rows in cases.items():
+        per = {k: sum(r[k] * r["calls"] for r in rows) for k in ("ms", "bound_ms")}
+        require(sum(r["calls"] for r in rows) == want[name],
+                f"{name}'s cases cover {sum(r['calls'] for r in rows)} calls of {want[name]}")
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"async_ev_cnn_torch/csrc/{sources[name]}", "replaces": None,
+                        "launches": launches[name],
+                        "max_abs_err": max(r["max_abs_err"] for r in rows),
+                        "ms": per["ms"], "bound_ms": per["bound_ms"], "bound_by": "bytes",
+                        "path_ms": by.get(name, (None, 0))[0],
+                        "path_records": by.get(name, (0.0, 0))[1], "library_ms": None,
+                        "cases": rows})
+    print(f"rvt: RVT-B {RVT_H}x{RVT_W} at its published widths; L1, G1 and E1's SiLU form "
+          f"within {RVT_KERNEL_REL} of their plain versions' largest values (L1's partitions "
+          f"alone equal) at every shape of a dispatch's walk; a dispatch ({RVT_STREAMS} streams "
+          f"x {RVT_CHUNKS} chunks of {RVT_EVENTS} clustered events) through StreamingPipeline: "
+          f"launches {launches}, peak {peak / 2**30:.2f} GiB (model {model / 2**30:.2f}); "
+          "device ms a dispatch from the cases (bound, share of it; in the profiled dispatch): "
+          + "; ".join(f"{e['name']} {e['ms']:.3f} ({e['bound_ms']:.3f}, "
+                      f"{100 * e['bound_ms'] / e['ms']:.1f}%; {e['path_ms'] or 0.0:.3f} ms in "
+                      f"{e['path_records']} records)"
+                      for e in entries)
+          + f"; the rest of the dispatch {by.get('other', (0.0, 0))[0]:.1f} ms; one stream's "
+          f"{RVT_CHUNKS} chunks under a {RVT_BUDGET_MB} MB budget: window {mem['window']}, "
+          f"peak {mem['peak_mb']:.1f} MB (whole: {mem['whole_peak_mb']:.1f} MB, model "
+          f"{mem['model_mb']:.1f}); card {smi!r}", flush=True)
+    del net, params
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3602,7 +3909,7 @@ def main() -> int:
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     sources = ("surface_scan", "gather_gemm", "fused_stem", "gather_copy", "conv_epilogue",
-               "conv_pool")
+               "conv_pool", "layer_norm", "lstm_gates")
     with ThreadPoolExecutor(max_workers=1) as pool:  # the host decoder beside them
         native_built = pool.submit(build_native)
         cuda_build.load_all(sources)  # one nvcc per source, started together
@@ -3879,6 +4186,7 @@ def main() -> int:
     # phase 35 here: late in a long run the profiler's traces lose records
     epilogue = {**epilogue_phase(dev, smi), "launches": main_epilogues}  # the main path's
     conv_pool = {**conv_pool_phase(dev, smi), "launches": main_conv_pools}
+    rvt_kernels = rvt_phase(dev, smi)
     stem_path_phase(model, c0, smi)
     tier_phase(dev, args, layer_defs, num_classes, num_bbox, c0, smi)
     kwargs = yolo_kwargs(args, layer_defs, num_classes, num_bbox, dev)
@@ -3933,7 +4241,7 @@ def main() -> int:
             "engine_scan_parallel": mesh["scan_launches"]["surface_scan_events_streams"],
             "mesh_pipeline": mesh["mesh"]["launches"]["surface_scan_events_streams"]}})
     print(json.dumps({"kernels": kernels + rulebook_kernels
-                      + [stem_kernel, gather_copy, epilogue, conv_pool]}))
+                      + [stem_kernel, gather_copy, epilogue, conv_pool] + rvt_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
