@@ -82,6 +82,15 @@ def plan(net, device=None, grad: bool = False, frames: int | None = None) -> tup
     return steps
 
 
+def held_weights(net) -> tuple:
+    """The kernels' weights that ``net``'s plans keep now (K6's taps, C1's
+    packed weights: each step's cache entries), for a captured CUDA graph
+    that reads them to hold: a step makes them anew for other weight
+    tensors and drops the old, which the graph would read freed."""
+    return tuple(entry for steps in net._plans.values() for step in steps if step.weights
+                 for entry in step.weights.values())
+
+
 #: the memory model's allowance (``EventNetwork.parallel_transient_bytes``)
 #: for the workspace of a conv whose algorithm cuDNN times
 #: (:func:`timed_algorithms`), beside its input and output

@@ -11,10 +11,29 @@ host never waits for one to finish before enqueueing the next; a bounded
 in-flight window applies backpressure, released with ONE scalar fetch per
 half-window (the card runs one stream's work in enqueue order, so the
 newest popped dispatch's checksum proves every older one retired).
+
 Results are yielded in order as :class:`DispatchResult` with
 device-resident ``outputs``.  Each dispatch records a completion event
 after its ``postprocess`` (a CUDA event, read when it is released; the
 host clock on the CPU), the stamp of :meth:`StreamingPipeline.latency_stats`.
+
+A one-stream dispatch on the card (a live camera's: its host's time to
+enqueue the dispatch is its latency) is replayed as a captured CUDA graph
+(:func:`graph_dispatch` says where): the first dispatch of a key runs
+eagerly, the second captures the device chain (unpack, ``scan_parallel``,
+checksum) into a ``torch.cuda.CUDAGraph`` and every later one replays it,
+one graph launch where the eager chain makes dozens of launches.  The key
+is what changes what is captured: the wire tier, each plane's shape and
+dtype, ``window``, the precision tier and each parameter's ``(data_ptr,
+_version)``, so a weight written in place is captured anew (K6 takes its
+taps by value, C1 its weights packed once per tensor version; the graph
+holds the packed weights it reads).  Before a replay the wire planes are
+uploaded into the graph's input planes and the rebased state is copied
+into its own; after it the outputs and the new state leave the graph's
+buffers as copies, before ``postprocess``, so nothing handed out is
+overwritten by a later replay.  The kernels' ``LAUNCHES`` count the
+launches their wrappers make, an eager dispatch's and a capture's, and a
+replay none: ``stats['graph_replays']`` counts the replays.
 
 Events cross the link in the smallest wire tier each item fits
 (``wire='auto'``: 2.5 B/event ultra4 -> 3 B ultra -> 4 B compact -> 8 B
@@ -55,7 +74,9 @@ from typing import Any, Iterable, Iterator, NamedTuple
 import numpy as np
 import torch
 
+from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.types import IntegrationState
+from async_ev_cnn_torch.ops.conv import matmul_precision
 from async_ev_cnn_torch.utils.device import resolve_device
 from async_ev_cnn_torch.utils.profiling import span
 from async_ev_cnn_torch.utils.wire import (
@@ -80,6 +101,10 @@ _REBASE_AT = 2**30
 _PREV_TS_FLOOR = -(2**30) + 1
 
 _WIRES = ("auto", "ultra4", "ultra", "compact", "plain")
+
+#: the most dispatch graphs a pipeline keeps (one a key); a dispatch of a
+#: new key past them runs eagerly
+GRAPHS_KEPT = 4
 
 
 class PreparedItem(NamedTuple):
@@ -109,6 +134,35 @@ class DispatchResult(NamedTuple):
     counts: Any = None
 
 
+class _DispatchGraph(NamedTuple):
+    """One captured dispatch: the CUDA graph, the buffers it reads (the wire
+    ``planes``, the rebased integration state ``intgr``) and writes (the
+    new integration state ``new``, the network's ``outs`` and the checksum
+    ``chk``), and the kernels' weights it reads from the network's plans
+    (``held``: kept alive for it, :func:`~async_ev_cnn_torch.layers.
+    conv_stack.held_weights`)."""
+
+    graph: Any
+    planes: tuple
+    intgr: IntegrationState
+    new: IntegrationState
+    outs: Any
+    chk: torch.Tensor
+    held: tuple
+
+
+def graph_dispatch(device_type: str, mesh: bool, streams: int, recurrent: bool,
+                   grad: bool) -> bool:
+    """Whether a pipeline replays its dispatches as captured CUDA graphs: on
+    a card, without a mesh, one stream a dispatch, a network with no
+    recurrent state and no parameter that requires grad.  Everything else
+    runs eagerly: the multi-stream dispatches are bound by the card, not
+    by their launches, and their layers' spans are read; a recurrent
+    network's walk lets cuDNN time its algorithms, which no capture may."""
+    return (device_type == "cuda" and not mesh and streams == 1 and not recurrent
+            and not grad)
+
+
 def _halves(d: int) -> np.ndarray:
     """A prev_ts shift as two int32 halves <= 2**30 (capped at 2**31)."""
     d = min(d, 2**31)
@@ -131,7 +185,8 @@ class StreamingPipeline:
     data axis; ``device`` is then the mesh's.  ``postprocess`` is applied
     to each dispatch's ``[T, ...]`` (``[S, T, ...]``, the rank's streams
     on a mesh) network outputs on the device: one grid, or the tuple of a
-    network with ``yolo`` layers.
+    network with ``yolo`` layers.  Where :func:`graph_dispatch` allows, each
+    dispatch is replayed as a captured CUDA graph (the module docstring).
     """
 
     def __init__(self, net, params, *, capacity=256, window=None,
@@ -200,8 +255,15 @@ class StreamingPipeline:
         self._applied_epochs = [0] * streams
         #: per stream: a hand-built item shifted prev_ts verbatim (F2)
         self._verbatim_shift = [False] * streams
-        #: cumulative serve() counters
-        self.stats = {"dispatches": 0, "wire_bytes": 0, "events": 0}
+        #: cumulative serve() counters: of the dispatches, those replayed as
+        #: a captured graph and those run eagerly, and the graphs captured
+        self.stats = {"dispatches": 0, "wire_bytes": 0, "events": 0,
+                      "graph_replays": 0, "eager_dispatches": 0, "graph_captures": 0}
+        #: the captured graphs by key, for the weights' stamp ``_stamp``
+        self._graphs: dict = {}
+        self._stamp = None
+        #: the keys dispatched eagerly once: the next of each is captured
+        self._eager_keys: set = set()
         # (latency_s, age_s) per retired dispatch for latency_stats(), from
         # its completion: the event recorded after its postprocess
         self._lat: deque = deque(maxlen=4096)
@@ -509,18 +571,90 @@ class StreamingPipeline:
         prev = torch.clamp(prev - d_b, min=_PREV_TS_FLOOR)
         return (IntegrationState(intgr.surface, prev),) + tuple(st[1:])
 
+    def _graph_key(self, wire):
+        """The key of this dispatch's graph, or None where it runs eagerly:
+        the weights' stamp and what else changes what is captured."""
+        params = self._params.values()
+        if not graph_dispatch(self._device.type, self._engine is not None, self._streams,
+                              bool(self._net.recurrent), any(p.requires_grad for p in params)):
+            return None
+        if any(p.is_inference() for p in params):
+            return None  # no version: a write in place could not be seen
+        stamp = tuple((p.data_ptr(), p._version) for p in params)
+        return stamp, (self.wire_tier, tuple((a.shape, a.dtype.str) for a in wire),
+                       self._window, matmul_precision())
+
+    def _graph(self, wire) -> _DispatchGraph | None:
+        """This dispatch's graph: the one captured for its key, or one
+        captured now where the key has run eagerly once; None where the
+        dispatch runs eagerly (no key, the first of a key, a new key past
+        GRAPHS_KEPT).  New weights drop every graph of the old ones."""
+        key = self._graph_key(wire)
+        if key is None:
+            return None
+        stamp, key = key
+        if stamp != self._stamp:
+            if self._graphs:
+                # none of the old graphs' replays may still run as they go
+                with span("host.sync"):
+                    torch.cuda.current_stream(self._device).synchronize()
+            self._graphs.clear()
+            self._eager_keys.clear()
+            self._stamp = stamp
+        g = self._graphs.get(key)
+        if g is None and key in self._eager_keys and len(self._graphs) < GRAPHS_KEPT:
+            with span("serve.capture"):
+                g = self._graphs[key] = self._capture(wire)
+        self._eager_keys.add(key)
+        return g
+
+    def _capture(self, wire) -> _DispatchGraph:
+        """Capture one dispatch's device chain: the unpack of the planes,
+        ``scan_parallel`` and the checksum, its inputs buffers of the shapes
+        of ``wire`` and of the state.  The kernels' caches and the plan
+        exist from the key's eager dispatch, so nothing in the chain waits
+        for the card."""
+        planes = wire_to_device(wire, self._device, self._staging)
+        intgr = IntegrationState(*(torch.empty_like(f) for f in self._state[0]))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            chunks = chunks_from_wire_any(planes, polarity=self._keep_polarity)
+            new, outs = self._net.scan_parallel(self._params, (intgr, *self._state[1:]), chunks,
+                                                window=self._window)
+            chk = (outs[-1] if isinstance(outs, tuple) else outs).mean()
+        self.stats["graph_captures"] += 1
+        return _DispatchGraph(graph, planes, intgr, new[0], outs, chk,
+                              conv_stack.held_weights(self._net))
+
     def _dispatch(self, wire, deltas):
         st = self._shift_prev_ts(self._state, deltas)
-        with span("serve.upload"):
-            planes = wire_to_device(wire, self._device, self._staging)
-        with span("serve.unpack"):
-            chunks = chunks_from_wire_any(planes, polarity=self._keep_polarity)
-        st, outs = self._net.scan_parallel(self._params, st, chunks, window=self._window)
+        g = self._graph(wire)
+        if g is None:
+            self.stats["eager_dispatches"] += 1
+            with span("serve.upload"):
+                planes = wire_to_device(wire, self._device, self._staging)
+            with span("serve.unpack"):
+                chunks = chunks_from_wire_any(planes, polarity=self._keep_polarity)
+            st, outs = self._net.scan_parallel(self._params, st, chunks, window=self._window)
+            # tiny checksum for retirement syncs: one scalar fetch proves it
+            # (a graph's last head is enqueued after every other output)
+            chk = (outs[-1] if isinstance(outs, tuple) else outs).mean()
+        else:
+            with span("serve.upload"):
+                wire_to_device(wire, self._device, self._staging, out=g.planes)
+                for dst, src in zip(g.intgr, st[0]):
+                    dst.copy_(src)
+            with span("serve.replay"):
+                g.graph.replay()
+                self.stats["graph_replays"] += 1
+                # copies out of the graph's buffers, which the next replay
+                # overwrites; the checksum is only waited on, and by then
+                # it is this replay's or a later one's
+                outs = _map_tensors(torch.clone, g.outs)
+                st = (IntegrationState(*(f.clone() for f in g.new)), *st[1:])
+                chk = g.chk
         with span("serve.post"):
             post = self._post(outs)
-        # tiny checksum for retirement syncs: one scalar fetch proves it
-        # (a graph's last head is enqueued after every other output)
-        chk = (outs[-1] if isinstance(outs, tuple) else outs).mean()
         return st, post, chk, self._completion()
 
     def serve(self, source: Iterable) -> Iterator[DispatchResult]:

@@ -431,9 +431,12 @@ class PinnedStaging:
         self._slots: dict = {}
         self._turn: dict = {}
 
-    def upload(self, a: np.ndarray, device: torch.device) -> torch.Tensor:
+    def upload(self, a: np.ndarray, device: torch.device,
+               out: torch.Tensor | None = None) -> torch.Tensor:
         """Copy ``a`` into the next pinned buffer of its shape and dtype and
-        enqueue its copy to ``device`` on the current stream."""
+        enqueue its copy to ``device`` on the current stream: into ``out``
+        where given (a tensor of that shape and dtype on ``device``), else
+        into a new tensor."""
         key = (a.shape, a.dtype.str)
         slots = self._slots.setdefault(key, [])
         k = self._turn.get(key, 0)
@@ -446,26 +449,37 @@ class PinnedStaging:
         with span("host.sync"):
             done.synchronize()  # the copy out of this buffer has run
         buf.numpy()[...] = a
-        out = buf.to(device, non_blocking=True)
+        if out is None:
+            out = buf.to(device, non_blocking=True)
+        else:
+            out.copy_(buf, non_blocking=True)
         done.record(torch.cuda.current_stream(device))
         return out
 
 
-def wire_to_device(w, device, staging: PinnedStaging | None = None) -> tuple:
+def wire_to_device(w, device, staging: PinnedStaging | None = None,
+                   out: tuple | None = None) -> tuple:
     """Upload a host wire tuple: each plane as a tensor on ``device`` (a u16
     plane as its int16 view, for torch's ``uint16`` lacks the ops the
-    unpacks need).  To the card each plane goes through the pinned buffers
-    of ``staging`` (a one-call ring when not given) with a copy that does
-    not block the host, enqueued on the current stream, so work enqueued
-    after it on that stream reads it complete."""
+    unpacks need), into the planes of ``out`` where given (tensors of
+    those shapes and dtypes on ``device``, as an earlier upload gave them).
+    To the card each plane goes through the pinned buffers of ``staging``
+    (a one-call ring when not given) with a copy that does not block the
+    host, enqueued on the current stream, so work enqueued after it on
+    that stream reads it complete."""
     device = torch.device(device)
     if device.type == "cuda" and staging is None:
         staging = PinnedStaging(1)
-    out = []
-    for a in w:
+    planes = []
+    for k, a in enumerate(w):
         a = np.ascontiguousarray(a)
         if a.dtype == np.uint16:
             a = a.view(np.int16)
-        out.append(staging.upload(a, device) if device.type == "cuda"
-                   else torch.from_numpy(a).to(device))
-    return tuple(out)
+        dst = None if out is None else out[k]
+        if device.type == "cuda":
+            planes.append(staging.upload(a, device, out=dst))
+        elif dst is None:
+            planes.append(torch.from_numpy(a).to(device))
+        else:
+            planes.append(dst.copy_(torch.from_numpy(a)))
+    return tuple(planes)

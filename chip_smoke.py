@@ -33,10 +33,16 @@ Phases, one line each on standard output:
 4. path: the eFCN from configs/efcn_event.yml with seeded random weights,
    served by StreamingPipeline (plain wire, T=200 chunks per dispatch,
    batched head.decode, the default 'events' engine: K1) for 16
-   dispatches; then the ts-map engine's path (K2), one full-width
+   dispatches, the first eager, the second captured as a CUDA graph and
+   every later one replayed; the same 16 run eagerly (K1, K6, C1 and E1
+   counted a dispatch), each replayed dispatch bit-equal to its eager
+   one; a replay's kernels counted by name in a torch.profiler trace;
+   then the ts-map engine's path (K2), one full-width
    EventNetwork.scan_parallel(integrate_engine='tsmap') dispatch.  The
    launch counts are set to 0 just before each path and read just after
-   it, and each kernel's count is its own path's;
+   it, and each kernel's count is its own path's (a replay launches
+   through no wrapper: the graph path counts its eager dispatch and its
+   capture);
 5. card against CPU: one T=16 dispatch by the same port on the card and on
    the CPU: surfaces bit-equal, grid outputs within 1e-4; then
    maxpool_dense on int32, bool and float32 maps at 'VALID' and 'SAME',
@@ -167,8 +173,9 @@ the one-stream kernels):
     dispatch, 12 dispatches, S = 1, 8 and 16, the counts set to 0 just
     before each run and read just after (one K1 call a dispatch, on the
     stream axis for S > 1): the first dispatch's K1 call bit-equal to its
-    plain version on the same inputs; aggregate events/s, p50 dispatch
-    latency, the tier settled on; at S = 8 the end surfaces bit-equal and
+    plain version on the same inputs (at S = 1 the eager dispatches and
+    the capture counted, every dispatch bit-equal to an eager pipeline's);
+    aggregate events/s, p50 dispatch latency, the tier settled on; at S = 8 the end surfaces bit-equal and
     the decoded outputs within 1e-4 of 8 one-stream pipelines;
 25. serve CLI: scripts.serve (its main) on a synthetic n-data tree under a
     temporary directory with seeded weights, --num_streams 4
@@ -2120,6 +2127,56 @@ def k1_streams_phase(dev, smi, s=K1_STREAMS):
 
 
 @contextlib.contextmanager
+def eager_dispatches():
+    """Every StreamingPipeline dispatch made inside runs eagerly
+    (``serving.graph_dispatch`` refuses it): the launches that a replay
+    of a captured graph stands in for, each counted by its wrapper."""
+    from async_ev_cnn_torch.utils import serving
+
+    real = serving.graph_dispatch
+    serving.graph_dispatch = lambda *args: False
+    try:
+        yield
+    finally:
+        serving.graph_dispatch = real
+
+
+#: each launch counter's kernels on the main path, by a part of their names
+#: (K1 a binning and a scan kernel; E1 the pooled or the plain epilogue)
+PATH_KERNELS = {"surface_scan_events": ("bin_events_kernel", "scan_events_kernel"),
+                "fused_stem": ("fused_stem_kernel",), "conv_pool": ("conv_pool_kernel",),
+                "conv_epilogue": ("pool_epilogue_kernel|act_epilogue_kernel",)}
+
+
+def kernels_in_a_replay(pipe, items, want: dict) -> dict:
+    """The hand-written kernels (K1, K6, C1, E1) that one replayed dispatch
+    of ``pipe`` runs, counted by name in a torch.profiler trace of it, each
+    against ``want`` (an eager dispatch's launches by counter).  A trace
+    that lost records (fewer) is taken again on the next of ``items``, one
+    dispatch each; one that holds more fails at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for item in items:
+        replays = pipe.stats["graph_replays"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            list(pipe.serve([item]))
+            torch.cuda.synchronize()
+        require(pipe.stats["graph_replays"] == replays + 1, "the profiled dispatch ran eagerly")
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        got = {launch: [sum(any(part in n for part in k.split("|")) for n in names)
+                        for k in kernels] for launch, kernels in PATH_KERNELS.items()}
+        seen.append(got)
+        if all(c == [want[launch]] * len(c) for launch, c in got.items()):
+            return {launch: c[0] for launch, c in got.items()}
+        require(all(n <= want[launch] for launch, c in got.items() for n in c),
+                f"a replay ran the kernels {got}, more than an eager dispatch's {want}")
+    require(False, f"{len(items)} traces of a replay lost records: {seen}, against {want}")
+
+
+@contextlib.contextmanager
 def first_call(module, name: str):
     """Keeps the inputs and the output of the first call of ``module.name``
     made inside (the callers look it up in its module at each call), to
@@ -2217,12 +2274,27 @@ def multistream_phase(model, num_classes, num_bbox, smi):
         wall = time.perf_counter() - t0
         launches = dict(sc.LAUNCHES)
         n_disp = SERVE_DISPATCHES
-        require(launches == (scan_launches(events=n_disp) if s == 1 else
+        # at S = 1 a key's first dispatch runs eagerly, its second captures
+        # a CUDA graph and replays it, every later one replays it: K1 is
+        # launched through its wrapper by the eager dispatches and the
+        # captures
+        made = pipe.stats["eager_dispatches"] + pipe.stats["graph_captures"]
+        require(launches == (scan_launches(events=made) if s == 1 else
                              scan_launches(streams=n_disp)),
-                f"S={s} serving launches {launches} for {n_disp} dispatches")
+                f"S={s} serving launches {launches} for {n_disp} dispatches, {pipe.stats}")
+        require(pipe.stats["eager_dispatches"] + pipe.stats["graph_replays"] == n_disp
+                and (pipe.stats["graph_replays"] > 0) == (s == 1),
+                f"S={s}: dispatched {pipe.stats}")
         k1_shape = check_k1_on_path(seen, f"S={s} serving")
         served = warm + rest
         require(len(served) == n_disp, f"S={s}: served {len(served)} of {n_disp}")
+        if s == 1:  # every dispatch bit for bit an eager pipeline's
+            with eager_dispatches():
+                eager = list(serving_pipeline(model, 1, post, dev).serve(source))
+            require(len(eager) == n_disp and all(
+                bit_equal(x, y) for a, b in zip(served, eager)
+                for x, y in zip(a.outputs, b.outputs)),
+                "S=1: the graph path's dispatches differ from the eager pipeline's")
         lead = (SERVE_CHUNKS,) if s == 1 else (s, SERVE_CHUNKS)
         for r in served:
             boxes, probs = r.outputs
@@ -3356,8 +3428,13 @@ def orbax_phase(model, kwargs, items, smi):
             torch.cuda.synchronize()
         launches[fmt] = dict(sc.LAUNCHES)
         k1_shape = check_k1_on_path(seen, f"the {fmt}-loaded pipeline")
-        require(launches[fmt] == scan_launches(events=DISPATCHES),
-                f"the {fmt}-loaded pipeline launched {launches[fmt]} on {DISPATCHES} dispatches")
+        # one stream on the card: K1 through its wrapper in the eager
+        # dispatches and the captures, a replay's inside its graph
+        made = pipe.stats["eager_dispatches"] + pipe.stats["graph_captures"]
+        require(launches[fmt] == scan_launches(events=made)
+                and pipe.stats["eager_dispatches"] + pipe.stats["graph_replays"] == DISPATCHES,
+                f"the {fmt}-loaded pipeline launched {launches[fmt]} on {DISPATCHES} "
+                f"dispatches, {pipe.stats}")
     require(all(bit_equal(a, b) for a, b in zip(served["orbax"], served["npz"])),
             "the Orbax-loaded model serves other grids than the .npz-loaded one")
     print(f"orbax: seeded eFCN weights ({sum(v.nbytes for v in weights.values())} bytes) "
@@ -4045,34 +4122,55 @@ def main() -> int:
                                       args.frame_h, args.frame_w)
         return boxes, probs
 
-    pipe = StreamingPipeline(model.net, model.params, capacity=CAPACITY,
-                             t_chunks=T_CHUNKS, wire="plain", postprocess=post,
-                             max_in_flight=2, device=dev)
-    # one item more than the counted run serves: the profiled dispatch
+    def pipeline():
+        return StreamingPipeline(model.net, model.params, capacity=CAPACITY,
+                                 t_chunks=T_CHUNKS, wire="plain", postprocess=post,
+                                 max_in_flight=2, device=dev)
+
+    # one stream on the card: the first dispatch runs eagerly, the second
+    # captures the dispatch as a CUDA graph and every later one replays it
+    pipe = pipeline()
     stream = synth_stream(np.random.RandomState(1), (DISPATCHES + 1) * T_CHUNKS, CAPACITY)
-    items = np.split(stream, DISPATCHES + 1)
+    items = np.split(stream, DISPATCHES + 1)[:DISPATCHES]
+    # after them: up to five profiled replays, then phase 6's dispatch
+    extra = synth_stream(np.random.RandomState(2), 6 * T_CHUNKS, CAPACITY)
+    extra[:, 2] += stream[-1, 2]
+    profiled = np.split(extra, 6)
 
     # the card's plan for a dispatch's T_CHUNKS frames, made (and its pairs
-    # probed) before the counted run; the main path: the counts are set to 0
-    # just before it, read just after
+    # probed) before the counted runs; the main path: the counts are set to
+    # 0 just before each run, read just after
     conv_stack.plan(model.net, dev, False, frames=T_CHUNKS)
-    sc.reset_launches()
-    ep.reset_launches()
-    tfs.reset_launches()
-    tcp.reset_launches()
-    torch.cuda.synchronize()
-    warm = list(pipe.serve(items[:1]))  # first dispatch: cuDNN set-up
-    t0 = time.perf_counter()
-    rest = list(pipe.serve(items[1:DISPATCHES]))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    main_launches = dict(sc.LAUNCHES)
-    main_epilogues = ep.LAUNCHES["conv_epilogue"]
-    main_stems = tfs.LAUNCHES["fused_stem"]
-    main_conv_pools = tcp.LAUNCHES["conv_pool"]
-    served = warm + rest
 
-    require(len(served) == DISPATCHES, f"served {len(served)} of {DISPATCHES} dispatches")
+    def counted(run):
+        sc.reset_launches()
+        ep.reset_launches()
+        tfs.reset_launches()
+        tcp.reset_launches()
+        torch.cuda.synchronize()
+        out = run()
+        torch.cuda.synchronize()
+        return out, (dict(sc.LAUNCHES), ep.LAUNCHES["conv_epilogue"],
+                     tfs.LAUNCHES["fused_stem"], tcp.LAUNCHES["conv_pool"])
+
+    def timed_run():
+        # the first dispatch: cuDNN set-up; the second: the capture
+        warm = list(pipe.serve(items[:2]))
+        t0 = time.perf_counter()
+        rest = list(pipe.serve(items[2:]))
+        torch.cuda.synchronize()
+        return warm, rest, time.perf_counter() - t0
+
+    (warm, rest, wall), graph_counts = counted(timed_run)
+    served = warm + rest
+    # the same dispatches run eagerly, each launch counted by its wrapper
+    with eager_dispatches():
+        eager_pipe = pipeline()
+        eager, eager_counts = counted(lambda: list(eager_pipe.serve(items)))
+    main_launches, main_epilogues, main_stems, main_conv_pools = eager_counts
+
+    require(len(served) == len(eager) == DISPATCHES,
+            f"served {len(served)} and {len(eager)} of {DISPATCHES} dispatches")
     # T=200 chunks is one window: K1 once per dispatch, K2 never; K6, C1 and
     # the conv epilogue as EPILOGUES says
     require(main_launches == scan_launches(events=DISPATCHES, tsmap=0),
@@ -4082,6 +4180,23 @@ def main() -> int:
             f"times for {DISPATCHES} dispatches")
     require(main_stems == STEMS * DISPATCHES,
             f"main path launched K6 {main_stems} times for {DISPATCHES} dispatches")
+    # the graph path: one eager dispatch and one capture launch through the
+    # wrappers, the replays launch none of their own
+    stats = dict(pipe.stats)
+    require(stats["eager_dispatches"] == stats["graph_captures"] == 1
+            and stats["graph_replays"] == DISPATCHES - 1,
+            f"the one-stream pipeline on the card dispatched {stats}")
+    require(graph_counts == (scan_launches(events=2, tsmap=0), 2 * EPILOGUES, 2 * STEMS,
+                             2 * C1S),
+            f"the graph path's wrappers launched {graph_counts} for an eager dispatch and "
+            "a capture")
+    # every replayed dispatch bit for bit the eager one, and the end state
+    for k, (a, b) in enumerate(zip(served, eager)):
+        require(all(bit_equal(x, y) for x, y in zip(a.outputs, b.outputs)),
+                f"replayed dispatch {k} differs from the eager one")
+    require(bit_equal(pipe.state[0].surface, eager_pipe.state[0].surface)
+            and torch.equal(pipe.state[0].prev_ts, eager_pipe.state[0].prev_ts),
+            "the graph path's end state differs from the eager path's")
     for r in served:
         boxes, probs = r.outputs
         require(boxes.shape == (T_CHUNKS, grid[0] * grid[1] * num_bbox, 4)
@@ -4100,11 +4215,16 @@ def main() -> int:
             "pipeline's first dispatch differs from scan_parallel")
     lat = pipe.latency_stats()
     n_events = sum(r.n_events for r in rest)
+    replay_kernels = kernels_in_a_replay(
+        pipe, profiled[:5], {"surface_scan_events": 1, "fused_stem": STEMS, "conv_pool": C1S,
+                         "conv_epilogue": EPILOGUES})
     print(f"path: eFCN {H}x{W} conv1..conv7, {DISPATCHES} dispatches of {T_CHUNKS} x "
           f"{CAPACITY} events through StreamingPipeline(wire='plain', max_in_flight=2): "
-          f"{n_events / wall:.0f} events/s over dispatches 2..{DISPATCHES} "
-          f"({wall * 1e3 / (DISPATCHES - 1):.2f} ms/dispatch), dispatch latency "
+          f"{n_events / wall:.0f} events/s over dispatches 3..{DISPATCHES} "
+          f"({wall * 1e3 / (DISPATCHES - 2):.2f} ms/dispatch), dispatch latency "
           f"p50 {lat['dispatch_latency_ms']['p50']} ms over all {lat['n']}; "
+          f"{stats['graph_replays']} dispatches replayed as a CUDA graph, each bit-equal to "
+          f"the eager dispatch, a replay's kernels by name {replay_kernels}; eager "
           f"launches {main_launches} "
           f"({main_launches['surface_scan_events'] / DISPATCHES:g} K1 per dispatch), "
           f"conv epilogue {main_epilogues} ({main_epilogues / DISPATCHES:g} per dispatch), "
@@ -4161,7 +4281,7 @@ def main() -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        list(pipe.serve(items[DISPATCHES:]))
+        list(pipe.serve(profiled[5:]))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]

@@ -239,7 +239,9 @@ def _assert_pipes_agree(t_pipe, j_pipe, got, want):
                                   np.asarray(j_pipe.state[0].prev_ts))
     assert t_pipe._epochs == j_pipe._epochs
     assert t_pipe._applied_epochs == j_pipe._applied_epochs
-    assert t_pipe.stats == j_pipe.stats
+    # the JAX engine's counters, and the port's own: every dispatch eager on the CPU
+    assert t_pipe.stats == dict(j_pipe.stats, eager_dispatches=j_pipe.stats["dispatches"],
+                                graph_replays=0, graph_captures=0)
     assert t_pipe._era == j_pipe._era
 
 

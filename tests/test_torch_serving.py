@@ -10,20 +10,25 @@ the event-scatter engine are in test_torch_network.py.  Comparisons of the
 port with itself are bit for bit.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from async_ev_cnn_torch.layers import conv_stack
 from async_ev_cnn_torch.layers.network import EventNetwork as TNet
 from async_ev_cnn_torch.models import head as thead
 from async_ev_cnn_torch.models.yolo import YoloEventTorch
+from async_ev_cnn_torch.ops.conv import set_matmul_precision
 from async_ev_cnn_torch.utils import serving as tserving
 from async_ev_cnn_torch.utils.config import layers_dict
 from async_ev_cnn_torch.utils.runner import pack_chunks as t_pack_chunks
 from async_ev_cnn_torch.utils.weights import params_from_jax
 from async_ev_cnn_torch.utils.wire import chunks_from_wire as t_unwire
+from async_ev_cnn_torch.utils.wire import WIRE_TIERS
 from async_ev_cnn_torch.utils.wire import pack_wire as t_pack_wire
 from async_ev_cnn_tpu.layers.network import EventNetwork as JNet
 from async_ev_cnn_tpu.models import head as jhead
@@ -138,7 +143,9 @@ def test_pipeline_matches_jax_including_rebase(rng, max_in_flight):
     np.testing.assert_allclose(t_pipe.state[0].surface.numpy(),
                                np.asarray(j_pipe.state[0].surface), rtol=0, atol=SURF_TOL)
     assert int(t_pipe.state[0].prev_ts) == int(j_pipe.state[0].prev_ts)
-    assert t_pipe.stats == j_pipe.stats
+    # the JAX engine's counters, and the port's own: every dispatch eager on the CPU
+    assert t_pipe.stats == dict(j_pipe.stats, eager_dispatches=j_pipe.stats["dispatches"],
+                                graph_replays=0, graph_captures=0)
 
 
 def test_pipeline_prepared_items_and_polarity_match_jax(rng):
@@ -356,3 +363,90 @@ def test_pipeline_slice_limits(rng, tmp_path):
     m.set_weights(_params(DSL, rng))
     _, grids = m.scan(m.init_state(), t_pack_chunks(_stream(rng, CAP), CAP, device="cpu"))
     assert tuple(grids.shape[1:]) == m.grid_shape
+
+
+@pytest.mark.parametrize("case", ["card", "cpu", "mesh", "streams", "recurrent", "grad"])
+def test_graph_dispatch_is_one_stream_stateless_inference_on_a_card(case):
+    """Only a one-stream dispatch on a card, without a mesh, of a network
+    with no recurrent state and no parameter that requires grad replays a
+    captured graph; everything else runs eagerly."""
+    args = dict(device_type="cuda", mesh=False, streams=1, recurrent=False, grad=False)
+    args.update({"card": {}, "cpu": dict(device_type="cpu"), "mesh": dict(mesh=True),
+                 "streams": dict(streams=16), "recurrent": dict(recurrent=True),
+                 "grad": dict(grad=True)}[case])
+    assert tserving.graph_dispatch(**args) is (case == "card")
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_every_dispatch_on_the_cpu_is_eager(rng, streams):
+    """The pipeline counts its dispatches by path: on the CPU all eager,
+    no graph captured or replayed."""
+    tn, _ = _nets()
+    pipe = tserving.StreamingPipeline(tn, params_from_jax(_params(DSL, rng), "cpu"),
+                                      capacity=CAP, streams=streams, device="cpu")
+    assert {"graph_replays", "eager_dispatches", "graph_captures"} <= set(pipe.stats)
+    items = _contiguous([_stream(rng, CAP + 5) for _ in range(3 * streams)])
+    assert len(list(pipe.serve(items))) == 3
+    assert pipe.stats["eager_dispatches"] == pipe.stats["dispatches"] == 3
+    assert pipe.stats["graph_replays"] == pipe.stats["graph_captures"] == 0
+
+
+KEY_CHANGES = ("none", "weight_in_place", "weight_rebound", "tier", "plane_shape", "window",
+               "precision")
+
+
+@pytest.mark.parametrize("change", KEY_CHANGES)
+def test_the_graph_key_moves_with_what_a_capture_bakes_in(rng, monkeypatch, change):
+    """A dispatch replays a graph only under the key it was captured with:
+    new weights (written in place, or ``.data`` rebound) change the
+    weights' stamp, and the wire tier, a plane's shape, ``window`` and the
+    precision tier the key; the same dispatch again keeps both.  Read on
+    the CPU with the path forced on."""
+    monkeypatch.setattr(tserving, "graph_dispatch", lambda *args: True)
+    tn, _ = _nets()
+    params = params_from_jax(_params(DSL, rng), "cpu")
+    pipe = tserving.StreamingPipeline(tn, params, capacity=CAP, wire="plain", device="cpu")
+    wire = t_pack_wire(_stream(rng, 3 * CAP), CAP)
+    stamp, key = pipe._graph_key(wire)
+    try:
+        if change == "weight_in_place":
+            params["w_conv1"].mul_(2)
+        elif change == "weight_rebound":
+            params["w_conv1"].data = params["w_conv1"].clone()
+        elif change == "tier":
+            pipe._era = WIRE_TIERS["compact"]
+        elif change == "plane_shape":
+            wire = t_pack_wire(_stream(rng, 4 * CAP), CAP)
+        elif change == "window":
+            pipe._window = 2
+        elif change == "precision":
+            set_matmul_precision("high")
+        stamp_after, key_after = pipe._graph_key(wire)
+    finally:
+        set_matmul_precision("highest")
+    assert (stamp_after == stamp) is (change not in ("weight_in_place", "weight_rebound"))
+    assert (key_after == key) is (change in ("none", "weight_in_place", "weight_rebound"))
+
+
+def test_inference_weights_keep_a_pipeline_eager(rng, monkeypatch):
+    """An inference tensor keeps no version, so a write in place could not
+    be told from a replay: no key, the dispatch runs eagerly."""
+    monkeypatch.setattr(tserving, "graph_dispatch", lambda *args: True)
+    tn, _ = _nets()
+    with torch.inference_mode():
+        params = params_from_jax(_params(DSL, rng), "cpu")
+    pipe = tserving.StreamingPipeline(tn, params, capacity=CAP, wire="plain", device="cpu")
+    assert pipe._graph_key(t_pack_wire(_stream(rng, 3 * CAP), CAP)) is None
+
+
+def test_a_graph_holds_every_plan_steps_kernel_weights():
+    """What a captured graph keeps alive: the cache entries of every step
+    of the network's plans that keeps its kernel's weights (K6's taps,
+    C1's packed weights), and nothing of the steps that keep none."""
+    stem, pair, other = object(), object(), object()
+    net = SimpleNamespace(_plans={
+        ("cuda", 64): (conv_stack.Step("stem", 0, (), {"conv1": stem}),
+                       conv_stack.Step("conv", 2, ())),
+        ("cuda", 8): (conv_stack.Step("conv_pool", 0, (), {"conv2": pair, "conv3": other}),
+                      conv_stack.Step("pooled", 2, (), {}))})
+    assert conv_stack.held_weights(net) == (stem, pair, other)

@@ -182,3 +182,22 @@ def test_packers_refuse_what_jax_refuses(rng):
     with pytest.raises(ValueError, match="4th"):
         tw.pack_wire_compact(_events(rng, 8, 3), 8, keep_polarity=True)
     assert tw.pack_wire_ultra4(_events(rng, 8, 3), 1) is None
+
+
+@pytest.mark.parametrize("polarity", [False, True])
+@pytest.mark.parametrize("packer", PACKERS)
+def test_wire_to_device_fills_given_planes_in_place(rng, packer, polarity):
+    """A captured graph's input planes: an upload into the planes of an
+    earlier one fills those tensors, in place, with what a fresh upload
+    gives (dtypes included, a u16 plane as its int16 view)."""
+    first = getattr(tw, packer)(_events(rng, 150, 3, polarity=polarity), 64,
+                                keep_polarity=polarity)
+    planes = tw.wire_to_device(first, "cpu")
+    for _ in range(2):  # the same planes filled twice, as a replay's inputs are
+        w = getattr(tw, packer)(_events(rng, 150, 3, polarity=polarity), 64,
+                                keep_polarity=polarity)
+        got = tw.wire_to_device(w, "cpu", out=planes)
+        assert all(g is p for g, p in zip(got, planes))
+        for g, want in zip(got, tw.wire_to_device(w, "cpu")):
+            assert g.dtype == want.dtype and torch.equal(g, want)
+        _assert_chunks_equal(tw.chunks_from_wire_any(planes, polarity), _t_unpack(w, polarity))
